@@ -6,18 +6,25 @@
 Phases, in order; any failure raises and exits non-zero before the last line:
 
 1. the card's name and power limit (nvidia-smi); TF32 off; build the CUDA
-   kernels from ``fastegnn_tpu_torch/csrc`` and print the build seconds;
+   kernels from ``fastegnn_tpu_torch/csrc`` (one nvcc per source, in
+   parallel) and print the build seconds;
 2. every kernel against its plain PyTorch version on the same CUDA tensors,
-   at the main path's shapes (the 8000-node Water-3D-shaped graph, seed 0),
-   forward and backward, in f32 and bf16: errors, median kernel and plain
-   times over CUDA events, and the bound derived from this run's inputs;
+   at the shapes its path gives it (the 8000-node Water-3D-shaped graph,
+   seed 0): the edge block forward and backward in f32 and bf16, and the
+   segment-sum over ``[E, H + 3]`` rows in its dst form (f32 and bf16 data)
+   and its src form (through ``src_perm``, f32): errors, median kernel,
+   plain and library times over CUDA events, and the bound derived from
+   this run's inputs;
 3. a small input: the model on the card (kernels) against the model on the
-   CPU (plain versions), f32;
+   CPU (plain versions), f32, for the fused layer and the attention layer;
 4. the main path: FastEGNN (H=64, C=3, L=4, gravity, bf16) trained with
    Adam(5e-4, 1e-12) and MMD (sigma 1, weight 0.01, sample 3, per graph) on
    the 8000-node graph, 3 warm-up + 20 timed steps, with the kernels' launch
    counts set to 0 just before and read just after; then a short
-   torch.profiler window over 3 more steps.
+   torch.profiler window over 3 more steps;
+5. the variant path: the same configuration with ``attention=True`` in f32
+   (the CLI's ``--attention_required`` off the TPU), whose edge block takes
+   the CSR branch and its segment-sum kernel, run and read the same way.
 
 Output: one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -36,7 +43,10 @@ import time
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 N_NODES, DEGREE, LAYERS, HIDDEN, CHANNELS = 8000, 60, 4, 64, 3
-WARMUP, TIMED, KERNEL_REPS = 3, 20, 25
+WARMUP, TIMED = 3, 20
+KERNEL_RUNS, KERNEL_INNER = 7, 10   # median over runs of back-to-back launches
+SEGSUM_F = HIDDEN + 3   # the variant path sums [m_e | trans] and grads of [h | x]
+SEGSUM_TOL = 1e-5       # both versions sum in f32, possibly in another order
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
 TOL = {("fwd", False): 1e-5, ("bwd", False): 5e-5,   # f32; bwd sums with atomics
        ("fwd", True): 2e-2, ("bwd", True): 2e-2}     # bf16: one bf16 ulp can flip
@@ -51,17 +61,23 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def median_ms(fn, reps: int) -> float:
+def median_ms(fn) -> float:
+    """Median ms per call over KERNEL_RUNS runs of KERNEL_INNER calls, each
+    run between two CUDA events: the host enqueues the next launch while the
+    card runs the last, so a wrapper's host time is not counted as kernel
+    time unless it exceeds it."""
     import torch
 
+    fn()
     times = []
-    for _ in range(reps):
+    for _ in range(KERNEL_RUNS):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(KERNEL_INNER):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / KERNEL_INNER)
     return statistics.median(times)
 
 
@@ -120,8 +136,8 @@ def kernel_phase(g, gen):
                 err = float((a - b).abs().max())
                 rel = err / max(float(b.abs().max()), 1e-30)
                 abs_err, rel_err = max(abs_err, err), max(rel_err, rel)
-            ms = median_ms(lambda: kern(*args), KERNEL_REPS)
-            plain_ms = median_ms(lambda: plain(*args), KERNEL_REPS)
+            ms = median_ms(lambda: kern(*args))
+            plain_ms = median_ms(lambda: plain(*args))
             b_ms, b_by = bound(kind, bf16, n, e, fe)
             mode = "bf16" if bf16 else "f32"
             print(f"[kernel] edge_block_{kind} {mode}: max_abs_err {abs_err:.3e} "
@@ -135,7 +151,74 @@ def kernel_phase(g, gen):
     return results
 
 
-def small_model_phase():
+def segsum_bound(e: int, n: int, f: int, elt: int, perm: bool):
+    """(bound_ms, bound_by) of one segment-sum call: the data rows, rowptr
+    (and perm) read once and the f32 output written once over the memory
+    rate, against one f32 add per input value over the f32 peak."""
+    nbytes = e * f * elt + (n + 1) * 4 + n * f * 4 + (e * 4 if perm else 0)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, e * f / PEAK_OPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def segsum_phase(g, gen):
+    """Phase 2b: the segment-sum kernel against its plain version, in the
+    three forms the variant path launches, at its shapes."""
+    import torch
+
+    from fastegnn_tpu_torch.ops import spmm
+
+    n, e, f = g.num_nodes, g.n_real_edges, SEGSUM_F
+    data = torch.randn(e, f, generator=gen).to(g.device)
+    offsets = g.rowptr.long()
+    src = g.src[:e].long()
+    # library yardsticks, timed only here: the dst form is a segment_reduce
+    # over the row pointer, the src form an index_add_ at src in edge order
+    def by_dst(d):
+        return torch.segment_reduce(d, "sum", offsets=offsets)
+
+    def by_src(d):
+        return torch.zeros(n, f, device=d.device).index_add_(0, src, d)
+
+    forms = (("dst f32", data, g.rowptr, None, by_dst),
+             ("dst bf16", data.bfloat16(), g.rowptr, None, by_dst),
+             ("src f32", data, g.src_rowptr, g.src_perm, by_src))
+    results = {}
+    for name, d, rowptr, perm, library in forms:
+        got = spmm.segment_sum_csr(d, rowptr, perm)
+        torch.cuda.synchronize()
+        want = spmm.segment_sum_csr_plain(d, rowptr, perm)
+        check(got.dtype == torch.float32 and tuple(got.shape) == (n, f)
+              and bool(torch.isfinite(got).all()), f"segment_sum {name}: bad output")
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        ms = median_ms(lambda: spmm.segment_sum_csr(d, rowptr, perm))
+        plain_ms = median_ms(lambda: spmm.segment_sum_csr_plain(d, rowptr, perm))
+        library_ms = median_ms(lambda: library(d))
+        b_ms, b_by = segsum_bound(e, n, f, d.element_size(), perm is not None)
+        print(f"[kernel] segment_sum {name} [{e}, {f}] -> [{n}, {f}]: max_abs_err {err:.3e} "
+              f"(tol {SEGSUM_TOL:g} x {top:.3e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        check(err <= SEGSUM_TOL * top, f"segment_sum {name}: kernel and plain disagree ({err:.3e})")
+        results[name] = dict(max_abs_err=err, max_rel_err=err / max(top, 1e-30), ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+    return results
+
+
+def launch_counts():
+    from fastegnn_tpu_torch.ops import edge_kernel as ek, spmm
+
+    return {"edge_block_fwd": ek.FWD_LAUNCHES, "edge_block_bwd": ek.BWD_LAUNCHES,
+            "segment_sum": spmm.SEGSUM_LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from fastegnn_tpu_torch.ops import edge_kernel as ek, spmm
+
+    ek.FWD_LAUNCHES = ek.BWD_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
+
+
+def small_model_phase(attention: bool):
     """Phase 3: the model on the card against the model on the CPU, f32."""
     import numpy as np
     import torch
@@ -146,19 +229,27 @@ def small_model_phase():
 
     g, _, _ = build_batch(n_nodes=400, degree=20, seed=3, device="cuda")
     gen = torch.Generator().manual_seed(3)
-    kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2, gravity=(0.0, -1.0, 0.0))
+    kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2, gravity=(0.0, -1.0, 0.0),
+              attention=attention)
     gpu = FastEGNN(2, 2, device="cuda", generator=gen, **kw)
     cpu = FastEGNN(2, 2, device="cpu", **kw)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     gc = g.to("cpu")
-    outs = []
+    outs, launches = [], None
+    torch.cuda.synchronize()
+    reset_launch_counts()
     for model, batch in ((gpu, g), (cpu, gc)):
         x, vx = model(batch)
         masked_mse(x, batch.coord_target, batch.node_mask).backward()
         outs.append((x.detach().cpu(), vx.detach().cpu(),
                      {k: p.grad.detach().cpu() for k, p in model.named_parameters()
                       if p.grad is not None}))
-    torch.cuda.synchronize()
+        if launches is None:   # the card's run
+            torch.cuda.synchronize()
+            launches = launch_counts()
+    want = ({"edge_block_fwd": 0, "edge_block_bwd": 0, "segment_sum": 3 * 2} if attention
+            else {"edge_block_fwd": 2, "edge_block_bwd": 2, "segment_sum": 0})
+    check(launches == want, f"small: launches {launches}, expected {want}")
     (x1, v1, g1), (x0, v0, g0) = outs
     mask = gc.node_mask
     err_x = float((x1 - x0)[mask].abs().max())
@@ -172,30 +263,36 @@ def small_model_phase():
            for k in g0}
     worst = max(rel, key=rel.get)
     err_g = rel[worst]
-    print(f"[small] card vs CPU, 400 nodes, L=2, f32: coord {err_x:.3e} virtual "
-          f"{err_v:.3e} grad (rel, worst {worst}) {err_g:.3e} (tol 1e-4)", flush=True)
+    layer = "attention" if attention else "fused"
+    print(f"[small] card vs CPU, 400 nodes, L=2, f32, {layer} layer: coord {err_x:.3e} virtual "
+          f"{err_v:.3e} grad (rel, worst {worst}) {err_g:.3e} (tol 1e-4); launches "
+          f"{launches}", flush=True)
     check(np.isfinite([err_x, err_v, err_g]).all(), "small: bad output")
     check(max(err_x, err_v, err_g) <= 1e-4, "small: card and CPU disagree")
 
 
-def main_path_phase(g, n_real):
-    """Phase 4: train steps of the full-width Water-3D configuration."""
+def train_path_phase(g, n_real, tag: str, attention: bool, bf16: bool, per_step: dict):
+    """Phases 4 and 5: train steps of the full-width Water-3D configuration
+    (``tag`` "main": the fused edge block in bf16; "variant": the attention
+    layer in f32), with every launch count set to 0 just before the run and
+    checked against ``per_step`` launches per step just after."""
     import torch
 
     from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
-    from fastegnn_tpu_torch.ops import edge_kernel as ek
     from fastegnn_tpu_torch.train.optim import torch_adam
     from fastegnn_tpu_torch.train.step import make_train_step
 
     model = FastEGNN(2, 2, hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=LAYERS,
-                     gravity=(0.0, -1.0, 0.0), compute_dtype=torch.bfloat16, device="cuda",
+                     gravity=(0.0, -1.0, 0.0), attention=attention,
+                     compute_dtype=torch.bfloat16 if bf16 else torch.float32, device="cuda",
                      generator=torch.Generator().manual_seed(0))
     opt = torch_adam(model.parameters(), 5e-4, 1e-12)
     step = make_train_step(model, opt, sigma=1.0, weight=0.01, sample=3,
                            per_graph_sampling=True,
                            generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
-    ek.FWD_LAUNCHES = ek.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
     metrics, times = [], []
     for i in range(WARMUP + TIMED):
         t0 = time.perf_counter()
@@ -203,31 +300,35 @@ def main_path_phase(g, n_real):
         torch.cuda.synchronize()
         if i >= WARMUP:
             times.append(time.perf_counter() - t0)
-    launches = {"edge_block_fwd": ek.FWD_LAUNCHES, "edge_block_bwd": ek.BWD_LAUNCHES}
+    launches = launch_counts()
     steps = WARMUP + TIMED
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     check(all(v == v and abs(v) < float("inf") for m in losses for v in m.values()),
-          "main path: non-finite loss")
+          f"{tag} path: non-finite loss")
     for name, count in launches.items():
-        check(count == LAYERS * steps,
-              f"main path: {name} launched {count} times in {steps} steps")
+        check(count == per_step[name] * steps,
+              f"{tag} path: {name} launched {count} times in {steps} steps, expected "
+              f"{per_step[name]} per step")
     step_ms = statistics.median(times) * 1e3
     rate = g.num_edges * LAYERS / (step_ms / 1e3) / 1e6
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
         x, vx = model(g)
     check(tuple(x.shape) == (g.num_nodes, 3) and tuple(vx.shape) == (1, 3, CHANNELS)
           and bool(torch.isfinite(x).all()) and bool(torch.isfinite(vx).all()),
-          "main path: bad prediction")
-    print(f"[main] {g.num_nodes} nodes, {n_real} real / {g.num_edges} padded edges, "
-          f"H={HIDDEN} C={CHANNELS} L={LAYERS} bf16: median step {step_ms:.3f} ms over "
+          f"{tag} path: bad prediction")
+    mode = ("attention " if attention else "") + ("bf16" if bf16 else "f32")
+    print(f"[{tag}] {g.num_nodes} nodes, {n_real} real / {g.num_edges} padded edges, "
+          f"H={HIDDEN} C={CHANNELS} L={LAYERS} {mode}: median step {step_ms:.3f} ms over "
           f"{TIMED} steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"{rate:.3f} M edge-messages/s; launches {launches}", flush=True)
-    print(f"[main] loss first {losses[0]} last {losses[-1]}", flush=True)
-    profile_window(step, g)
+    print(f"[{tag}] loss first {losses[0]} last {losses[-1]}; peak device memory "
+          f"{peak_gib:.3f} GiB", flush=True)
+    profile_window(step, g, tag)
     return launches, step_ms, rate
 
 
-def profile_window(step, g, n_steps: int = 3) -> None:
+def profile_window(step, g, tag: str, n_steps: int = 3) -> None:
     """Device time by kernel over a few steps (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -245,11 +346,11 @@ def profile_window(step, g, n_steps: int = 3) -> None:
             if ev.device_time_total > 0 and not getattr(ev, "is_user_annotation", False)
             and ev.device_type == torch.autograd.DeviceType.CUDA]
     if not rows:
-        print("[profile] no device time in the trace: not measured", flush=True)
+        print(f"[profile] {tag}: no device time in the trace: not measured", flush=True)
         return
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[profile] {n_steps} steps: wall {wall_us / 1e3:.3f} ms, device kernel time "
+    print(f"[profile] {tag}, {n_steps} steps: wall {wall_us / 1e3:.3f} ms, device kernel time "
           f"{busy / 1e3:.3f} ms (busy share {busy / wall_us:.3f}, profiler on)", flush=True)
     for key, t, cnt in rows[:12]:
         print(f"[profile]   {t / n_steps / 1e3:9.4f} ms/step  x{cnt // n_steps:<4d} {key[:90]}",
@@ -287,8 +388,15 @@ def main() -> int:
           f"{n_real} real edges, {g.num_edges} padded, degree {stats}", flush=True)
 
     kern = kernel_phase(g, torch.Generator().manual_seed(0))
-    small_model_phase()
-    launches, step_ms, rate = main_path_phase(g, n_real)
+    seg = segsum_phase(g, torch.Generator().manual_seed(1))
+    small_model_phase(attention=False)
+    small_model_phase(attention=True)
+    launches, step_ms, rate = train_path_phase(
+        g, n_real, "main", attention=False, bf16=True,
+        per_step={"edge_block_fwd": LAYERS, "edge_block_bwd": LAYERS, "segment_sum": 0})
+    var_launches, var_step_ms, var_rate = train_path_phase(
+        g, n_real, "variant", attention=True, bf16=False,
+        per_step={"edge_block_fwd": 0, "edge_block_bwd": 0, "segment_sum": 3 * LAYERS})
 
     entries = []
     for kind, line in (("fwd", 467), ("bwd", 503)):
@@ -303,8 +411,18 @@ def main() -> int:
             **main, "library_ms": None,
             "f32": f32,
         })
+    entries.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "fastegnn_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "fastegnn_tpu/ops/spmm.py:87",
+        "tpu": "ops/spmm.py::_segment_sum_kernel",
+        "launches": var_launches["segment_sum"], "mode": "dst f32",
+        **seg["dst f32"],
+        "forms": {k: v for k, v in seg.items() if k != "dst f32"},
+    })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
-                      "M_edge_messages_per_s": rate}), flush=True)
+                      "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,
+                      "variant_M_edge_messages_per_s": var_rate}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,12 @@ In place of the JAX package's slot packer and CSR-block tables the batch
 carries ``rowptr`` [N + 1]: the CSR row pointer of the dst-sorted real
 edges, so the real edges of row ``n`` are ``rowptr[n]:rowptr[n + 1]`` and
 ``rowptr[N]`` is the number of real edges.  The CUDA edge kernels walk it
-directly; the sentinel tail past ``rowptr[N]`` is never read.
+directly; the sentinel tail past ``rowptr[N]`` is never read.  For the
+src role it carries ``src_perm`` [n_real], the stable argsort of the real
+edges' ``src``, and ``src_rowptr`` [N + 1], the row pointer of the
+src-sorted real edges (the JAX package's ``src_perm`` / ``csr_src``): the
+segment-sum kernel reads edge rows through them in ``gather_src``'s
+backward (``ops/spmm.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ class GraphBatch:
     loc_mean: torch.Tensor        # [B, 3, C]
     dst_count: torch.Tensor       # [N] f32 real in-degree
     rowptr: torch.Tensor          # [N + 1] int32 CSR over the real edges
+    src_perm: torch.Tensor        # [n_real] int32 stable argsort of real src
+    src_rowptr: torch.Tensor      # [N + 1] int32 CSR over the src-sorted real edges
     n_graphs: int
     n_real_edges: int             # == rowptr[N], known on the host
     node_attr: Optional[torch.Tensor] = None   # [N, Fa]
@@ -212,6 +219,9 @@ def batch_graphs(
     n_real = int(rowptr[-1])
     if not (edge_mask[:n_real].all() and not edge_mask[n_real:].any()):
         raise ValueError("real edges must precede the padded edges after sorting")
+    src_perm = np.argsort(src[:n_real], kind="stable")
+    src_rowptr = np.searchsorted(src[:n_real][src_perm], np.arange(total_nodes + 1),
+                                 side="left")
 
     c = spec.virtual_channels
     means = []
@@ -242,6 +252,8 @@ def batch_graphs(
         loc_mean=t(loc_mean),
         dst_count=t(dst_count.astype(np.float32)),
         rowptr=t(rowptr.astype(np.int32)),
+        src_perm=t(src_perm.astype(np.int32)),
+        src_rowptr=t(src_rowptr.astype(np.int32)),
         n_graphs=b,
         n_real_edges=n_real,
         node_attr=node_attr,

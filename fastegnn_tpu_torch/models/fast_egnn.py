@@ -12,7 +12,11 @@ The real-edge block takes the fused path (``ops/edge_kernel.py``: the CUDA
 kernels on a CUDA batch, their plain versions on a CPU batch) whenever the
 layer fits it — hidden 64, at most 3 edge attributes, no attention,
 normalize or tanh, mean aggregation — with the whole batch in one call.
-Other variants gather the edges and run :func:`edge_messages`.
+Other variants take the JAX package's CSR branch (``fast_egnn.py:227-253``
+there): ``[h | x]`` gathered at dst and src with the segment-sum kernel as
+the gathers' backward, :func:`edge_messages`, and one segment-sum of
+``[m_e | trans]`` per destination (``ops/spmm.py``).  As in that branch,
+the translations are rounded to the compute dtype before they are summed.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from fastegnn_tpu_torch.models.fastegnn_core import (
     LayerCfg, edge_messages, virtual_and_node_update)
 from fastegnn_tpu_torch.models.nn import coord_mlp, init_parameters_, mlp
 from fastegnn_tpu_torch.ops.edge_kernel import FE_MAX, H as EDGE_H, fused_edge_block
-from fastegnn_tpu_torch.ops.segment import segment_sum
+from fastegnn_tpu_torch.ops.spmm import gather_dst, gather_src, sorted_segment_sum_csr
 
 
 class EGCLVel(nn.Module):
@@ -76,12 +80,16 @@ class EGCLVel(nn.Module):
                 g0.weight.t(), g0.bias, g2.weight.t(),
                 compute_dtype=cfg.compute_dtype)
         else:
-            ne = graph.n_real_edges
-            d, s = graph.dst[:ne].long(), graph.src[:ne].long()
-            m_e, trans = edge_messages(cfg, self, h[d], h[s], x[d], x[s],
-                                       graph.edge_attr[:ne])
-            m_sum = segment_sum(m_e.float(), d, N)
-            trans_sum = segment_sum(trans, d, N)
+            ne, H = graph.n_real_edges, cfg.hidden
+            d = graph.dst[:ne]
+            hx = torch.cat([h, x], -1)                                  # [N, H+3]
+            hx_d = gather_dst(hx, d, graph.rowptr)
+            hx_s = gather_src(hx, graph.src[:ne], graph.src_perm, graph.src_rowptr)
+            m_e, trans = edge_messages(cfg, self, hx_d[:, :H], hx_s[:, :H],
+                                       hx_d[:, H:], hx_s[:, H:], graph.edge_attr[:ne])
+            summed = sorted_segment_sum_csr(
+                torch.cat([m_e, trans.to(m_e.dtype)], -1), d, graph.rowptr, N)
+            m_sum, trans_sum = summed[:, :H], summed[:, H:]
         cnt = graph.dst_count.clamp_min(1.0)[:, None]
         agg_x = trans_sum / cnt if cfg.coords_agg == "mean" else trans_sum
         agg_e = m_sum / cnt

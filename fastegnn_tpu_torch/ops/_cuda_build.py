@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
-SOURCES = ("edge_block",)
+SOURCES = ("edge_block", "segment_sum")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

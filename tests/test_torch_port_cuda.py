@@ -1,4 +1,4 @@
-"""The port's CUDA edge kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Marked ``cuda``: they need an NVIDIA GPU with nvcc and skip elsewhere.  On
 a machine with the card, from the repository root (``--noconftest`` because
@@ -13,7 +13,7 @@ import torch
 
 from fastegnn_tpu_torch.graph import GraphSpec, batch_graphs, pad_graph
 from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
-from fastegnn_tpu_torch.ops import edge_kernel as ek
+from fastegnn_tpu_torch.ops import edge_kernel as ek, spmm
 from fastegnn_tpu_torch.ops.neighbors import cutoff_edges_np
 
 pytestmark = pytest.mark.cuda
@@ -77,18 +77,61 @@ def test_kernels_match_plain_versions(cuda, bf16):
         assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max()
 
 
+@pytest.mark.parametrize("form,bf16", [("dst", False), ("dst", True), ("src", False),
+                                       ("src", True)])
+def test_segment_sum_matches_plain_version(cuda, form, bf16):
+    g = _graph(cuda)
+    data = torch.randn(g.n_real_edges, H + 3, device=cuda)
+    if bf16:
+        data = data.bfloat16()
+    rowptr, perm = (g.rowptr, None) if form == "dst" else (g.src_rowptr, g.src_perm)
+    before = spmm.SEGSUM_LAUNCHES
+    got = spmm.segment_sum_csr(data, rowptr, perm)
+    torch.cuda.synchronize()
+    assert spmm.SEGSUM_LAUNCHES == before + 1
+    want = spmm.segment_sum_csr_plain(data, rowptr, perm)
+    assert got.dtype == torch.float32 and got.shape == (g.num_nodes, H + 3)
+    # both sum in f32, possibly in another order
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_segment_sum_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    g = _graph(cuda, n=40)
+    data = torch.randn(g.n_real_edges, 5, device=cuda)
+    before = spmm.SEGSUM_LAUNCHES
+    with pytest.raises(ValueError, match="int32"):
+        spmm.segment_sum_csr(data, g.rowptr.long())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        spmm.segment_sum_csr(data.half(), g.rowptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm.segment_sum_csr(data.t().contiguous().t(), g.rowptr)
+    with pytest.raises(ValueError, match="cpu"):
+        spmm.segment_sum_csr(data, g.rowptr.cpu())
+    assert spmm.SEGSUM_LAUNCHES == before
+
+
 def test_model_on_card_matches_cpu(cuda):
+    _model_on_card_matches_cpu(cuda, attention=False, launches=(2, 2, 0))
+
+
+def test_attention_model_on_card_matches_cpu(cuda):
+    # the CSR edge branch: three segment-sum launches per layer, no edge block
+    _model_on_card_matches_cpu(cuda, attention=True, launches=(0, 0, 6))
+
+
+def _model_on_card_matches_cpu(cuda, attention, launches):
     g = _graph(cuda, n=60, seed=3)
     gen = torch.Generator().manual_seed(0)
-    model = FastEGNN(2, 2, hidden=64, n_layers=2, gravity=(0.0, -1.0, 0.0),
-                     device=cuda, generator=gen)
-    cpu = FastEGNN(2, 2, hidden=64, n_layers=2, gravity=(0.0, -1.0, 0.0), device="cpu")
+    kw = dict(hidden=64, n_layers=2, gravity=(0.0, -1.0, 0.0), attention=attention)
+    model = FastEGNN(2, 2, device=cuda, generator=gen, **kw)
+    cpu = FastEGNN(2, 2, device="cpu", **kw)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    n_fwd, n_bwd = ek.FWD_LAUNCHES, ek.BWD_LAUNCHES
+    before = (ek.FWD_LAUNCHES, ek.BWD_LAUNCHES, spmm.SEGSUM_LAUNCHES)
     x, vx = model(g)
     x.square().sum().backward()
     torch.cuda.synchronize()
-    assert (ek.FWD_LAUNCHES - n_fwd, ek.BWD_LAUNCHES - n_bwd) == (2, 2)
+    after = (ek.FWD_LAUNCHES, ek.BWD_LAUNCHES, spmm.SEGSUM_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == launches
     xc, vxc = cpu(g.to("cpu"))
     xc.square().sum().backward()
     torch.testing.assert_close(x.detach().cpu(), xc.detach(), atol=1e-4, rtol=1e-4)

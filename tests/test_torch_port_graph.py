@@ -22,15 +22,21 @@ _FIELDS = ("node_feat", "coord", "vel", "coord_target", "node_mask", "graph_id",
            "dst", "src", "edge_attr", "edge_mask", "dst_count", "loc_mean", "node_attr")
 
 
-def _both(raws, pad_nodes, pad_edges, spatial_sort=False, edge_align=1024):
+def _both(raws, pad_nodes, pad_edges, spatial_sort=False, edge_align=1024, csr=False):
     n = max(r["coord"].shape[0] for r in raws)
     e = max(r["dst"].shape[0] for r in raws)
     kw = dict(max_nodes=n + pad_nodes, max_edges=e + pad_edges, n_graphs=len(raws),
               edge_attr_dim=2, virtual_channels=3)
     js, ps = jgraph.GraphSpec(**kw), pgraph.GraphSpec(**kw)
-    jb = jgraph.batch_graphs(
-        [jgraph.pad_graph(js, **r, spatial_sort=spatial_sort) for r in raws], js,
-        edge_align=edge_align)
+    jpadded = [jgraph.pad_graph(js, **r, spatial_sort=spatial_sort) for r in raws]
+    # csr: one graph per fused-kernel group, so the JAX batch carries its
+    # CSR tables (src_perm, csr_src) only with csr_for_groups
+    old = jgraph.EK5_MAX_NODES
+    jgraph.EK5_MAX_NODES = js.max_nodes if csr else old
+    try:
+        jb = jgraph.batch_graphs(jpadded, js, edge_align=edge_align, csr_for_groups=csr)
+    finally:
+        jgraph.EK5_MAX_NODES = old
     pb = pgraph.batch_graphs(
         [pgraph.pad_graph(ps, **r, spatial_sort=spatial_sort) for r in raws], ps,
         edge_align=edge_align, device="cpu")
@@ -65,6 +71,23 @@ def test_rowptr_is_csr_of_real_edges():
     assert (dst[pb.n_real_edges:] == n).all() and (pb.src.numpy()[pb.n_real_edges:] == 0).all()
 
 
+@pytest.mark.parametrize("pad_nodes,pad_edges,spatial_sort", [(0, 0, False), (4, 9, True)])
+def test_src_csr_matches_jax(pad_nodes, pad_edges, spatial_sort):
+    rng = np.random.default_rng(6)
+    raws = [random_raw_graph(rng, n, cutoff_rate=0.4) for n in (10, 13, 8)]
+    jb, pb = _both(raws, pad_nodes, pad_edges, spatial_sort, csr=True)
+    assert jb.csr_src is not None
+    n, n_real = pb.num_nodes, pb.n_real_edges
+    # the JAX permutation runs over every edge and puts the padded ones last
+    jperm = np.asarray(jb.src_perm)
+    np.testing.assert_array_equal(pb.src_perm.numpy(), jperm[:n_real])
+    assert (jperm[n_real:] >= n_real).all()
+    starts, ends = np.asarray(jb.csr_src.starts).ravel(), np.asarray(jb.csr_src.ends).ravel()
+    np.testing.assert_array_equal(pb.src_rowptr.numpy(), np.append(starts[:n], ends[n - 1]))
+    assert pb.src_perm.dtype == pb.src_rowptr.dtype == torch.int32
+    assert int(pb.src_rowptr[-1]) == n_real
+
+
 def test_morton_order_matches_jax():
     loc = np.random.default_rng(2).normal(size=(300, 3)).astype(np.float32)
     np.testing.assert_array_equal(pgraph.morton_order(loc), jgraph.morton_order(loc))
@@ -74,7 +97,7 @@ def test_to_moves_every_tensor():
     rng = np.random.default_rng(3)
     _, pb = _both([random_raw_graph(rng, 5)], 0, 0)
     moved = pb.to("cpu")
-    for f in _FIELDS:
+    for f in _FIELDS + ("rowptr", "src_perm", "src_rowptr"):
         assert torch.equal(getattr(moved, f), getattr(pb, f))
     assert moved.n_real_edges == pb.n_real_edges
 

@@ -4,13 +4,20 @@ Weights cross through the reference state-dict layout: JAX params ->
 ``state_dict_from_jax_params`` -> port, and back through
 ``params_from_reference_state_dict``.  Inputs are 4 graphs x 40 nodes
 (``helpers.random_raw_graph``), H=64, C=3, L=2, f32.
+
+The layer variants the fused edge block does not cover (attention,
+normalize + tanh, hidden 32) are also held against the JAX package's CSR
+branch, on a batch that carries its CSR tables so that the JAX side runs
+the Pallas segment-sum kernel (in interpret mode).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import fastegnn_tpu.graph as jgraph
 from fastegnn_tpu.graph import GraphSpec as JSpec, batch_graphs as jbatch, pad_graph as jpad
 from fastegnn_tpu.models import FastEGNN as JFastEGNN
 from fastegnn_tpu.ops.rotation import random_rotation
@@ -26,14 +33,25 @@ from helpers import random_raw_graph
 GRAV = (0.0, -1.0, 0.0)
 
 
-def _batches(n_graphs=4, n_nodes=40, seed=5):
+def _batches(n_graphs=4, n_nodes=40, seed=5, csr=False):
     rng = np.random.default_rng(seed)
     raws = [random_raw_graph(rng, n_nodes) for _ in range(n_graphs)]
     kw = dict(max_nodes=n_nodes, max_edges=n_nodes * (n_nodes - 1), n_graphs=n_graphs,
               edge_attr_dim=2, virtual_channels=3)
     js, ps = JSpec(**kw), GraphSpec(**kw)
-    return (jbatch([jpad(js, **r) for r in raws], js),
-            batch_graphs([pad_graph(ps, **r) for r in raws], ps, device="cpu"))
+    pb = batch_graphs([pad_graph(ps, **r) for r in raws], ps, device="cpu")
+    if not csr:
+        return jbatch([jpad(js, **r) for r in raws], js), pb
+    # one graph per fused-kernel group: the batch then carries the CSR
+    # tables only with csr_for_groups (tests/test_fast_egnn.py does the same)
+    old = jgraph.EK5_MAX_NODES
+    jgraph.EK5_MAX_NODES = n_nodes
+    try:
+        jb = jbatch([jpad(js, **r) for r in raws], js, csr_for_groups=True)
+    finally:
+        jgraph.EK5_MAX_NODES = old
+    assert jb.csr_dst is not None
+    return jb, pb
 
 
 def _models(jb, hidden=64, gravity=GRAV, **variant):
@@ -113,6 +131,80 @@ def test_unfused_variant_matches_jax():
         xp, vp = pm(pb)
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=1e-4, atol=1e-4)
+
+
+# The CSR-branch variants: (keyword arguments, hidden)
+VARIANTS = {"attention": (dict(attention=True), 64),
+            "normalize_tanh": (dict(normalize=True, tanh=True), 64),
+            "hidden32": ({}, 32)}
+
+
+@pytest.fixture(scope="module")
+def csr_batches():
+    return _batches(n_graphs=3, n_nodes=24, seed=8, csr=True)
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def csr_variant(request, csr_batches):
+    """JAX forward and MSE parameter gradients on the CSR branch, and the
+    port model with the same weights, for one variant."""
+    jb, pb = csr_batches
+    variant, hidden = VARIANTS[request.param]
+    jm, params, pm = _models(jb, hidden=hidden, **variant)
+    assert not pm.gcl_0.fused
+
+    def jloss(p):
+        x, vx = jm.apply({"params": p}, jb)
+        return jmse(x, jb.coord_target, jb.node_mask), (x, vx)
+
+    (_, (xj, vj)), gj = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    return dict(jb=jb, pb=pb, pm=pm, hidden=hidden, attention=bool(variant.get("attention")),
+                xj=np.asarray(xj), vj=np.asarray(vj), gj=gj)
+
+
+# 1e-4, as for the fused path: the sums run in different orders on the two
+# sides, compounding over the two layers
+def test_csr_branch_forward_matches_jax(csr_variant):
+    v = csr_variant
+    with torch.no_grad():
+        xp, vp = v["pm"](v["pb"])
+    mask = np.asarray(v["jb"].node_mask)
+    np.testing.assert_allclose(xp.numpy()[mask], v["xj"][mask], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(vp.numpy(), v["vj"], rtol=1e-4, atol=1e-4)
+
+
+def test_csr_branch_param_gradients_match_jax(csr_variant):
+    v = csr_variant
+    pm, pb = v["pm"], v["pb"]
+    pm.zero_grad()
+    x, _ = pm(pb)
+    masked_mse(x, pb.coord_target, pb.node_mask).backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+             for k, p in pm.named_parameters()}
+    gp = params_from_reference_state_dict(grads, n_layers=2, hidden=v["hidden"],
+                                          has_gravity=True, attention=v["attention"])
+    assert jax.tree.structure(gp) == jax.tree.structure(v["gj"])
+    for a, b in zip(jax.tree.leaves(gp), jax.tree.leaves(v["gj"])):
+        b = np.asarray(b)
+        scale = float(np.abs(b).max()) + 1e-12
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
+
+
+def test_csr_branch_bf16_forward_matches_jax(csr_batches):
+    # bf16 MLP compute: both sides round the translations to bf16 before the
+    # f32 segment-sum; 2e-2 covers the two packages' bf16 rounding points
+    jb, pb = csr_batches
+    kw = dict(hidden=64, virtual_channels=3, n_layers=2, gravity=GRAV, attention=True)
+    jm = JFastEGNN(fuse_edge=False, compute_dtype=jnp.bfloat16, **kw)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.key(0), jb)["params"])
+    pm = FastEGNN(2, 2, compute_dtype=torch.bfloat16, device="cpu", **kw)
+    pm.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    xj, vj = jm.apply({"params": params}, jb)
+    with torch.no_grad():
+        xp, vp = pm(pb)
+    mask = np.asarray(jb.node_mask)
+    np.testing.assert_allclose(xp.numpy()[mask], np.asarray(xj)[mask], rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=2e-2, atol=2e-2)
 
 
 def test_se3_equivariance_without_gravity():

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import fastegnn_tpu.graph as jgraph
 from fastegnn_tpu.graph import GraphSpec as JSpec, batch_graphs as jbatch, pad_graph as jpad
 from fastegnn_tpu.models import FastEGNN as JFastEGNN
 from fastegnn_tpu.train import TrainState, torch_adam as jadam
@@ -32,19 +33,38 @@ REPO = Path(__file__).resolve().parent.parent
 GRAV = (0.0, -1.0, 0.0)
 
 
-def _batches(sizes=(30, 24, 30), cap=30, seed=7):
+def _batches(sizes=(30, 24, 30), cap=30, seed=7, csr=False):
     rng = np.random.default_rng(seed)
     raws = [random_raw_graph(rng, n, cutoff_rate=0.5) for n in sizes]
     kw = dict(max_nodes=cap, max_edges=cap * (cap - 1), n_graphs=len(sizes),
               edge_attr_dim=2, virtual_channels=3)
     js, ps = JSpec(**kw), GraphSpec(**kw)
-    return (jbatch([jpad(js, **r) for r in raws], js),
-            batch_graphs([pad_graph(ps, **r) for r in raws], ps, device="cpu"))
+    # csr: one graph per fused-kernel group, so that the JAX batch carries
+    # the CSR tables of its Pallas segment-sum branch (csr_for_groups)
+    old = jgraph.EK5_MAX_NODES
+    jgraph.EK5_MAX_NODES = cap if csr else old
+    try:
+        jb = jbatch([jpad(js, **r) for r in raws], js, csr_for_groups=csr)
+    finally:
+        jgraph.EK5_MAX_NODES = old
+    assert (jb.csr_dst is not None) == csr
+    return jb, batch_graphs([pad_graph(ps, **r) for r in raws], ps, device="cpu")
 
 
 def test_train_step_matches_jax():
-    jb, pb = _batches()
-    jm = JFastEGNN(hidden=64, virtual_channels=3, n_layers=2, gravity=GRAV, fuse_edge=False)
+    _check_train_step(attention=False)
+
+
+def test_attention_train_step_matches_jax():
+    # the CSR edge branch on both sides, the JAX side through the Pallas
+    # segment-sum kernel
+    _check_train_step(attention=True)
+
+
+def _check_train_step(attention):
+    jb, pb = _batches(csr=attention)
+    jm = JFastEGNN(hidden=64, virtual_channels=3, n_layers=2, gravity=GRAV, fuse_edge=False,
+                   attention=attention)
     params = jm.init(jax.random.key(0), jb)["params"]
     key = jax.random.key(1)
     kw = dict(sigma=1.0, weight=0.01, sample=3, per_graph_sampling=True)
@@ -52,7 +72,9 @@ def test_train_step_matches_jax():
     state, mj = jstep(jm, tx, donate=False, **kw)(TrainState.create(params, tx), jb, key)
     gj = jax.jit(jax.grad(lambda p: jloss_fn(jm, 1.0, 0.01, 3, True)(p, jb, key)[0]))(params)
 
-    pm = FastEGNN(2, 2, hidden=64, virtual_channels=3, n_layers=2, gravity=GRAV, device="cpu")
+    pm = FastEGNN(2, 2, hidden=64, virtual_channels=3, n_layers=2, gravity=GRAV,
+                  attention=attention, device="cpu")
+    assert pm.gcl_0.fused != attention
     pm.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)))
     step = make_train_step(pm, torch_adam(pm.parameters(), 5e-4, 1e-12), **kw)
     # the JAX step draws exactly these scores from `key` (train/loss.py:73)
@@ -67,7 +89,7 @@ def test_train_step_matches_jax():
 
     new = params_from_reference_state_dict(
         {k: v.detach().numpy() for k, v in pm.state_dict().items()},
-        n_layers=2, has_gravity=True)
+        n_layers=2, has_gravity=True, attention=attention)
     # Adam's first update is ~lr * sign(g): where |g| < 1e-6 the two
     # packages' last-bit gradient differences can flip it, so those entries
     # are left out
