@@ -16,9 +16,10 @@ The first linear is folded into node tables built outside the kernels with
 ``torch.matmul``: ``Ud = h W1[0:64] + b1`` and ``Us = h W1[64:128]``.  The
 kernels (``csrc/edge_block.cu``; design and bound in its header) walk the
 dst CSR ``rowptr`` / ``src`` of the whole batch in one launch each and run
-the two 64x64 chain products in their bodies.  The backward returns the
-per-node sums ``dUd`` / ``dUs`` and the epilogue turns them into ``dh``,
-``dW1`` and ``db1`` with three matmuls, as the JAX op does.
+the two 64x64 chain products in their bodies; the bf16 backward runs its
+products on the tensor cores.  The backward returns the per-node sums
+``dUd`` / ``dUs`` and the epilogue turns them into ``dh``, ``dW1`` and
+``db1`` with three matmuls, as the JAX op does.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``
@@ -137,16 +138,38 @@ def edge_block_bwd_plain(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16:
     pack ``[PACK_ROWS, 64]`` (layout of :func:`pack_weights`; the dW1
     radial and edge-attr rows, dW2, dWg1, dwg2, db2, dbg1).
     """
-    r = lambda t: _rnd(t, bf16)  # noqa: E731
     n = x.shape[0]
     n_e, d, s = _real_edges(rowptr, src, dst)
     fe = ea.shape[1]
-    c = _chain(ud, us, x, d, s, ea[:n_e], wpack, bf16)
+    c = chain_bwd(ud, us, x, d, s, ea[:n_e], wpack, dms[d], dts[d], bf16)
+    dud = x.new_zeros((n, H)).index_add(0, d, c["d_z1_c"])
+    dus = x.new_zeros((n, H)).index_add(0, s, c["d_z1_c"])
+    dx = x.new_zeros((n, 3)).index_add(0, d, c["d_diff"]).index_add(0, s, -c["d_diff"])
+    dw = x.new_zeros((PACK_ROWS, H))
+    dw[ROW_W2:ROW_W2 + H] = c["a1"].T @ c["d_z2_c"]
+    dw[ROW_WG1:ROW_WG1 + H] = c["m"].T @ c["d_zg_c"]
+    dw[ROW_W1E:ROW_W1E + fe] = c["ea_r"].T @ c["d_z1_c"]
+    dw[ROW_W1R] = (_rnd(c["radial"], bf16) * c["d_z1_c"]).sum(0)
+    dw[ROW_WG2] = (c["g1"] * c["d_gate"]).sum(0)
+    dw[ROW_B2] = c["d_z2"].sum(0)
+    dw[ROW_BG1] = c["d_zg"].sum(0)
+    return dud, dus, dx, dw
+
+
+def chain_bwd(ud, us, x, dst, src, ea, wpack, dm, dt, bf16: bool):
+    """The forward chain of every edge and its backward from the per-edge
+    upstream gradients ``dm`` [E, 64] / ``dt`` [E, 3]: the dict of
+    :func:`_chain` plus ``d_gate``, ``d_diff``, the deltas ``d_zg``,
+    ``d_z2``, ``d_z1`` and their rounded copies ``*_c``.  In bf16 mode the
+    operands of the six 64x64 products (``a1``, ``m``, ``d_zg_c``,
+    ``d_z2_c`` and the W2 / Wg1 pack rows) and of the dUd / dW1 sums
+    (``d_z1_c``, ``ea_r`` and the rounded radial) are bf16 values, which the
+    tensor-core kernel relies on."""
+    r = lambda t: _rnd(t, bf16)  # noqa: E731
+    c = _chain(ud, us, x, dst, src, ea, wpack, bf16)
     w2, wg1 = wpack[ROW_W2:ROW_W2 + H], wpack[ROW_WG1:ROW_WG1 + H]
     wg2, w1r = wpack[ROW_WG2], wpack[ROW_W1R]
-    dm, dt = dms[d], dts[d]
     d_gate = (c["diff"] * dt).sum(1, keepdim=True)
-    d_diff = dt * c["gate"]
     d_zg = d_gate * wg2 * _dsilu(c["zg"], c["sg"])
     d_zg_c = r(d_zg)
     d_z2 = (dm + d_zg_c @ wg1.T) * _dsilu(c["z2"], c["s2"])
@@ -154,19 +177,9 @@ def edge_block_bwd_plain(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16:
     d_z1 = (d_z2_c @ w2.T) * _dsilu(c["z1"], c["s1"])
     d_z1_c = r(d_z1)
     d_radial = (d_z1 * w1r).sum(1, keepdim=True)
-    d_diff = d_diff + 2.0 * c["diff"] * d_radial
-    dud = x.new_zeros((n, H)).index_add(0, d, d_z1_c)
-    dus = x.new_zeros((n, H)).index_add(0, s, d_z1_c)
-    dx = x.new_zeros((n, 3)).index_add(0, d, d_diff).index_add(0, s, -d_diff)
-    dw = x.new_zeros((PACK_ROWS, H))
-    dw[ROW_W2:ROW_W2 + H] = c["a1"].T @ d_z2_c
-    dw[ROW_WG1:ROW_WG1 + H] = c["m"].T @ d_zg_c
-    dw[ROW_W1E:ROW_W1E + fe] = c["ea_r"].T @ d_z1_c
-    dw[ROW_W1R] = (r(c["radial"]) * d_z1_c).sum(0)
-    dw[ROW_WG2] = (c["g1"] * d_gate).sum(0)
-    dw[ROW_B2] = d_z2.sum(0)
-    dw[ROW_BG1] = d_zg.sum(0)
-    return dud, dus, dx, dw
+    d_diff = dt * c["gate"] + 2.0 * c["diff"] * d_radial
+    return dict(c, d_gate=d_gate, d_diff=d_diff, d_zg=d_zg, d_zg_c=d_zg_c, d_z2=d_z2,
+                d_z2_c=d_z2_c, d_z1=d_z1, d_z1_c=d_z1_c)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +263,7 @@ def edge_block_bwd(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16: bool)
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  The kernel sums the src-role terms (dUs, the src part of dx) and
     the weight grads with f32 atomics, so those vary in the last bits from
-    run to run."""
+    run to run; dUd is deterministic."""
     global BWD_LAUNCHES
     if x.device.type == "cpu":
         return edge_block_bwd_plain(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)

@@ -95,6 +95,80 @@ def test_segment_sum_matches_plain_version(cuda, form, bf16):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+def _ragged_csr(rng, n, long_row, long_deg, empty):
+    """Degrees of ``n`` rows: one row of ``long_deg`` edges, the rows in
+    ``empty`` without edges, the others 0..8; and the CSR row pointer."""
+    deg = rng.integers(0, 9, size=n)
+    deg[long_row] = long_deg
+    deg[list(empty)] = 0
+    return deg, np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fe", [0, 1, 3])
+def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
+    # 16-row blocks of 64-edge tiles: a hub row of 150 edges spans three
+    # tiles, rows 16..31 (a whole block) and a few more have no edges, the
+    # last tile of a block is partly empty, and a padded tail past
+    # rowptr[N] must not be read
+    rng = np.random.default_rng(fe)
+    n, pad = 70, 9
+    deg, rowptr = _ragged_csr(rng, n, 5, 150, [*range(16, 32), 40, 41, 69])
+    e = int(rowptr[-1])
+    assert e % 64 and (rowptr[48] - rowptr[32]) % 64
+    dst = np.concatenate([np.repeat(np.arange(n), deg), np.full(pad, n)]).astype(np.int32)
+    src = np.concatenate([rng.integers(0, n, e), np.zeros(pad)]).astype(np.int32)
+    ea = np.concatenate([rng.normal(size=(e, fe)), np.full((pad, fe), 9.0)]).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    x = t(rng.normal(size=(n, 3)).astype(np.float32))
+    W1, b1, W2, b2, Wg1, bg1, wg2 = _weights(cuda)
+    W1 = torch.cat([W1[:2 * H + 1], W1[2 * H + 1:2 * H + 1 + fe]])
+    h = t(rng.normal(size=(n, H)).astype(np.float32))
+    ud, us = ek.build_tables(h, W1, b1, bf16)
+    wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, bf16)
+    dms = ek._rnd(t(rng.normal(size=(n, H)).astype(np.float32)), bf16)
+    dts = ek._rnd(t(rng.normal(size=(n, 3)).astype(np.float32)), bf16)
+    args = (ud, us, x, t(rowptr), t(src), t(dst), t(ea), wpack, dms, dts, bf16)
+    before = ek.BWD_LAUNCHES
+    got = ek.edge_block_bwd(*args)
+    torch.cuda.synchronize()
+    assert ek.BWD_LAUNCHES == before + 1
+    want = ek.edge_block_bwd_plain(*args)
+    for name, a, b in zip(("dUd", "dUs", "dx", "dw"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max(), name
+    assert (got[0][16:32] == 0).all() and (got[0][[40, 41, 69]] == 0).all()
+
+
+@pytest.mark.parametrize("form", ["dst", "src"])
+@pytest.mark.parametrize("f,bf16", [(1, False), (67, False), (131, False), (1, True),
+                                    (67, True), (131, True)])
+def test_segment_sum_long_rows_and_wide_features(cuda, form, f, bf16):
+    # a 300-edge row, empty rows, F of 1, 67 (the variant path) and 131 (two
+    # passes), odd bf16 rows; the sums are deterministic
+    rng = np.random.default_rng(f)
+    n = 50
+    deg, rowptr = _ragged_csr(rng, n, 7, 300, [*range(10, 15), 49])
+    e = int(rowptr[-1])
+    data = torch.tensor(rng.normal(size=(e + 5, f)).astype(np.float32), device=cuda)
+    data[e:] = 1e6   # rows past rowptr[N] are never read
+    if bf16:
+        data = data.bfloat16()
+    perm = None
+    if form == "src":   # rows read through the stable argsort of a src array
+        src = rng.permutation(np.repeat(np.arange(n), deg))
+        perm = torch.tensor(np.argsort(src, kind="stable").astype(np.int32), device=cuda)
+    rp = torch.tensor(rowptr, device=cuda)
+    got = spmm.segment_sum_csr(data, rp, perm)
+    again = spmm.segment_sum_csr(data, rp, perm)
+    torch.cuda.synchronize()
+    want = spmm.segment_sum_csr_plain(data, rp, perm)
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, again)
+    assert (got[10:15] == 0).all() and (got[49] == 0).all()
+
+
 def test_segment_sum_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     g = _graph(cuda, n=40)
     data = torch.randn(g.n_real_edges, 5, device=cuda)

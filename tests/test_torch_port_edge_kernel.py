@@ -112,6 +112,33 @@ def test_bf16_mode_close_to_f32_reference():
         assert np.abs(a.grad.numpy() - b).max() < 3e-2 * np.abs(b).max()
 
 
+def test_bf16_chain_product_operands_are_bf16_values():
+    # the bf16 backward kernel runs the six 64x64 products (and the dUd /
+    # dW1 sums) on the tensor cores with bf16 operands; that is exact only
+    # while every operand the plain version multiplies is already a bf16 value
+    _, th, tx, tw, (rowptr, src, dst, ea) = _torch_case(seed=2)
+    W1, b1, W2, b2, Wg1, bg1, wg2 = tw
+    ud, us = ek.build_tables(th, W1, b1, True)
+    wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, True)
+    gen = torch.Generator().manual_seed(0)
+    n = th.shape[0]
+    dms = ek._rnd(torch.randn(n, H, generator=gen), True)
+    dts = ek._rnd(torch.randn(n, 3, generator=gen), True)
+    d, s = dst.long(), src.long()
+    c = ek.chain_bwd(ud, us, tx, d, s, ea, wpack, dms[d], dts[d], True)
+    operands = dict(a1=c["a1"], m=c["m"], d_zg_c=c["d_zg_c"], d_z2_c=c["d_z2_c"],
+                    W2=wpack[ek.ROW_W2:ek.ROW_W2 + H], Wg1=wpack[ek.ROW_WG1:ek.ROW_WG1 + H],
+                    # and those of the dUd / dW1 radial and edge-attr sums
+                    d_z1_c=c["d_z1_c"], ea_r=c["ea_r"], radial=ek._rnd(c["radial"], True))
+    for name, t in operands.items():
+        assert t.dtype == torch.float32 and t.abs().max() > 0, name
+        assert torch.equal(t, t.bfloat16().float()), name
+    # the unrounded deltas feed db2, dbg1 and d_radial: not bf16 values
+    assert not torch.equal(c["d_z2"], c["d_z2_c"])
+    assert not torch.equal(c["d_zg"], c["d_zg_c"])
+    assert not torch.equal(c["d_z1"], c["d_z1_c"])
+
+
 def test_isolated_rows_are_zero_and_padding_is_never_read():
     # rows past the last dst get no edges; the edge arrays carry a padded
     # tail (src 0, sentinel dst) beyond rowptr[N] that must not contribute
