@@ -48,9 +48,6 @@ WARMUP, TIMED = 3, 20
 KERNEL_RUNS, KERNEL_INNER = 7, 10   # median over runs of back-to-back launches
 SEGSUM_F = HIDDEN + 3   # the variant path sums [m_e | trans] and grads of [h | x]
 SEGSUM_TOL = 1e-5       # both versions sum in f32, possibly in another order
-# the times of the kernels' previous designs (PERF.md's kernel table), beside the new ones
-EARLIER_MS = {"edge_block_bwd": 2.9598,
-              "segment_sum": {"dst f32": 0.1038, "dst bf16": 0.0852, "src f32": 0.0965}}
 # the port's kernels, which [profile] lists wherever they rank
 OWN_KERNELS = ("edge_fwd_kernel", "edge_bwd", "segment_sum_kernel")
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
@@ -424,9 +421,7 @@ def main() -> int:
             "replaces": f"fastegnn_tpu/ops/edge_kernel_v5.py:{line}",
             "tpu": f"ops/edge_kernel_v5.py::_{kind}_kernel",
             "launches": launches[name], "mode": "bf16",
-            **main, "library_ms": None,
-            **({"earlier_ms": EARLIER_MS[name]} if name in EARLIER_MS else {}),
-            "f32": f32,
+            **main, "library_ms": None, "f32": f32,
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",
@@ -434,9 +429,8 @@ def main() -> int:
         "replaces": "fastegnn_tpu/ops/spmm.py:87",
         "tpu": "ops/spmm.py::_segment_sum_kernel",
         "launches": var_launches["segment_sum"], "mode": "dst f32",
-        **seg["dst f32"], "earlier_ms": EARLIER_MS["segment_sum"]["dst f32"],
-        "forms": {k: {**v, "earlier_ms": EARLIER_MS["segment_sum"][k]}
-                  for k, v in seg.items() if k != "dst f32"},
+        **seg["dst f32"],
+        "forms": {k: v for k, v in seg.items() if k != "dst f32"},
     })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,

@@ -25,7 +25,7 @@
 //   written once (no atomics, deterministic).  The products run as FP32 FMAs
 //   on the CUDA cores, one edge per warp at a time, ~100x above the bound
 //   (PERF.md); moving them to the tensor cores is later work.
-// - backward in f32 (edge_bwd_kernel<float>): one block per range of
+// - backward in f32 (edge_bwd_kernel): one block per range of
 //   BWD_ROWS dst rows, in tiles of TE edges (TE / WARPS per warp).  Phase 1
 //   recomputes the chain and its backward per edge with FP32 FMAs and stages
 //   a1, m, d_zg, d_z2, d_z1 in shared memory; src-role sums (dUs, dx_src) go
@@ -50,14 +50,15 @@
 //   Each tile is staged as bf16 [64][64] in shared memory (z1 then d_z1, a1,
 //   z2, m, d_zg, d_z2) beside one f32 scratch tile for the product results;
 //   between products, one warp per edge row runs the elementwise chain
-//   (sigmoids from the approximate exp and reciprocal, gate and d_radial by
-//   warp reductions, the rounding), and the dst-role dx sums go to per-warp
-//   rows in shared memory.  The next tile's Us rows arrive by cp.async and
-//   its src ids a tile ahead.  With the products off the CUDA cores the
-//   products' shared-memory traffic and latency, the elementwise chain, its
-//   warp reductions and the src-role atomics each take a share of the time
-//   (PERF.md, from kernel_lab.py), at 2 blocks of 8 warps per SM, where
-//   128 registers and ~111 KB of shared memory per block hold it.
+//   (the forward's exact sigmoid, so the recomputed chain is the forward's
+//   bit for bit; gate and d_radial by warp reductions; the rounding), and
+//   the dst-role dx sums go to per-warp rows in shared memory.  The next
+//   tile's Us rows arrive by cp.async and its src ids a tile ahead.  With
+//   the products off the CUDA cores, the sigmoids take the largest share of
+//   the time, then the products' shared-memory round trips, the warp
+//   reductions and the src-role atomics (PERF.md, from
+//   scripts/torch_kernel_lab.py), at 2 blocks of 8 warps per SM, where 128
+//   registers and ~111 KB of shared memory per block hold it.
 // Each backward block adds its weight-gradient tiles to dw with one atomic per
 // entry.  The atomics make dUs, dx and dw vary in the last bits from run to
 // run; dUd and the forward are deterministic.
@@ -259,9 +260,8 @@ edge_fwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
   }
 }
 
-template <typename T, bool BF>
 __global__ void __launch_bounds__(THREADS)
-edge_bwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
+edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
                 const float* __restrict__ x, const int* __restrict__ rowptr,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 const float* __restrict__ ea, int fe, const float* __restrict__ wpack,
@@ -276,9 +276,9 @@ edge_bwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
   float* sWg1T = sWg1 + H * H;
   float* A1 = sWg1T + H * H;      // [TE][H] a1 per staged edge
   float* M = A1 + TE * H;         // [TE][H] m
-  float* DZG = M + TE * H;        // [TE][H] d_zg (rounded)
-  float* DZ2 = DZG + TE * H;      // [TE][H] d_z2 (rounded)
-  float* DZ1 = DZ2 + TE * H;      // [TE][H] d_z1 (rounded)
+  float* DZG = M + TE * H;        // [TE][H] d_zg
+  float* DZ2 = DZG + TE * H;      // [TE][H] d_z2
+  float* DZ1 = DZ2 + TE * H;      // [TE][H] d_z1
   float* DDIFF = DZ1 + TE * H;    // [TE][4] d(x_d - x_s)
   int* DSTI = reinterpret_cast<int*>(DDIFF + 4 * TE);  // [TE] dst row, -1 = empty
 
@@ -337,8 +337,8 @@ edge_bwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
       const float2 udr = load2(ud, (long)d * H + k0);
       const float xd[3] = {x[3 * d], x[3 * d + 1], x[3 * d + 2]};
       Chain c;
-      chain_fwd<T, BF>(c, udr, us, s, x, xd, ea + (long)e * fe, fe, w, sW2, sWg1, a1r,
-                       mr, k0);
+      chain_fwd<float, false>(c, udr, us, s, x, xd, ea + (long)e * fe, fe, w, sW2, sWg1,
+                              a1r, mr, k0);
 
       const float dt[3] = {dts[3 * d], dts[3 * d + 1], dts[3 * d + 2]};
       const float2 dm = load2(dms, (long)d * H + k0);
@@ -348,31 +348,28 @@ edge_bwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
       for (int k = 0; k < 3; ++k) d_diff[k] = dt[k] * c.gate;
       const float2 dzg = make_float2(d_gate * w.wg2.x * dsilu(c.zg.x, c.sg.x),
                                      d_gate * w.wg2.y * dsilu(c.zg.y, c.sg.y));
-      const float2 dzgc = rnd2<BF>(dzg);
-      dzgr[k0] = dzgc.x;
-      dzgr[k0 + 1] = dzgc.y;
+      dzgr[k0] = dzg.x;
+      dzgr[k0 + 1] = dzg.y;
       __syncwarp();
       float2 t = matvec(dzgr, sWg1T, k0);  // d_m = dm + Wg1 d_zg
       const float2 dz2 = make_float2((dm.x + t.x) * dsilu(c.z2.x, c.s2.x),
                                      (dm.y + t.y) * dsilu(c.z2.y, c.s2.y));
-      const float2 dz2c = rnd2<BF>(dz2);
-      dz2r[k0] = dz2c.x;
-      dz2r[k0 + 1] = dz2c.y;
+      dz2r[k0] = dz2.x;
+      dz2r[k0 + 1] = dz2.y;
       __syncwarp();
       t = matvec(dz2r, sW2T, k0);  // d_a1 = W2 d_z2
       const float2 dz1 = make_float2(t.x * dsilu(c.z1.x, c.s1.x), t.y * dsilu(c.z1.y, c.s1.y));
-      const float2 dz1c = rnd2<BF>(dz1);
       const float d_radial = warp_sum(dz1.x * w.w1r.x + dz1.y * w.w1r.y);
 #pragma unroll
       for (int k = 0; k < 3; ++k) d_diff[k] += 2.f * c.diff[k] * d_radial;
 
       // src role: atomics
-      atomicAdd(dus + (long)s * H + k0, dz1c.x);
-      atomicAdd(dus + (long)s * H + k0 + 1, dz1c.y);
+      atomicAdd(dus + (long)s * H + k0, dz1.x);
+      atomicAdd(dus + (long)s * H + k0 + 1, dz1.y);
       if (lane < 3) atomicAdd(dxs + 3 * s + lane, pick3(d_diff, lane));
       // dst role: staged for the per-row sums of phase 2
-      dz1r[k0] = dz1c.x;
-      dz1r[k0 + 1] = dz1c.y;
+      dz1r[k0] = dz1.x;
+      dz1r[k0 + 1] = dz1.y;
       if (lane == 0) DSTI[te] = d;
       if (lane < 3) DDIFF[4 * te + lane] = pick3(d_diff, lane);
       // per-feature weight grads
@@ -380,13 +377,12 @@ edge_bwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
       g_bg1.x += dzg.x; g_bg1.y += dzg.y;
       g_wg2.x += c.g1.x * d_gate;
       g_wg2.y += c.g1.y * d_gate;
-      const float rr = rnd<BF>(c.radial);
-      g_w1r.x += rr * dz1c.x;
-      g_w1r.y += rr * dz1c.y;
+      g_w1r.x += c.radial * dz1.x;
+      g_w1r.y += c.radial * dz1.y;
 #pragma unroll
       for (int f = 0; f < FE_MAX; ++f) {
-        g_w1e[f].x += c.ea[f] * dz1c.x;
-        g_w1e[f].y += c.ea[f] * dz1c.y;
+        g_w1e[f].x += c.ea[f] * dz1.x;
+        g_w1e[f].y += c.ea[f] * dz1.y;
       }
       __syncwarp();
     }
@@ -505,11 +501,10 @@ __device__ __forceinline__ float2 load_f2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// The logistic from the approximate exp and reciprocal (a few f32 ulps): its
-// callers round it to bf16, which this moves by one bf16 ulp only when the
-// exact value lies within those ulps of a rounding boundary.
-__device__ __forceinline__ float2 sigmoid_bf(float2 z) {
-  return make_float2(__fdividef(1.f, 1.f + __expf(-z.x)), __fdividef(1.f, 1.f + __expf(-z.y)));
+// The logistic of edge_fwd_kernel's chain, so that the recomputed chain is
+// the forward's bit for bit.
+__device__ __forceinline__ float2 sigmoid2(float2 z) {
+  return make_float2(sigmoid(z.x), sigmoid(z.y));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -742,7 +737,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
           }
           z1 = rnd2<true>(make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
                                       (udr.y + u.y) + radial * w1r.y + eterm.y));
-          const float2 s1 = rnd2<true>(sigmoid_bf(z1));
+          const float2 s1 = rnd2<true>(sigmoid2(z1));
           a1 = rnd2<true>(make_float2(z1.x * s1.x, z1.y * s1.y));
         }
         store_bf2(sZ1 + te * LDB + k0, z1);
@@ -763,7 +758,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         if (sROW[te] >= 0) {
           const float2 t = load_f2(sS + te * LDF + k0);
           z2 = rnd2<true>(make_float2(t.x + b2.x, t.y + b2.y));
-          const float2 s2 = rnd2<true>(sigmoid_bf(z2));
+          const float2 s2 = rnd2<true>(sigmoid2(z2));
           m = rnd2<true>(make_float2(z2.x * s2.x, z2.y * s2.y));
         }
         store_bf2(sZ2 + te * LDB + k0, z2);
@@ -786,7 +781,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         if (r >= 0) {
           const float2 t = load_f2(sS + te * LDF + k0);
           const float2 zg = rnd2<true>(make_float2(t.x + bg1.x, t.y + bg1.y));
-          const float2 sg = rnd2<true>(sigmoid_bf(zg));
+          const float2 sg = rnd2<true>(sigmoid2(zg));
           const float2 g1 = rnd2<true>(make_float2(zg.x * sg.x, zg.y * sg.y));
           const float gate = warp_sum(g1.x * wg2.x + g1.y * wg2.y);
           const float* dt = sDT + 4 * r;
@@ -817,7 +812,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         const float2 t = load_f2(sS + te * LDF + k0);
         const float2 dm = load_f2(dms + (long)(r0 + r) * H + k0);
         const float2 z2 = load_bf2(sZ2 + te * LDB + k0);
-        const float2 s2 = rnd2<true>(sigmoid_bf(z2));
+        const float2 s2 = rnd2<true>(sigmoid2(z2));
         const float2 dz2 = make_float2((dm.x + t.x) * dsilu(z2.x, s2.x),
                                        (dm.y + t.y) * dsilu(z2.y, s2.y));
         dz2c = rnd2<true>(dz2);
@@ -840,7 +835,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         if (r >= 0) {
           const float2 t = load_f2(sS + te * LDF + k0);
           const float2 z1 = load_bf2(sZ1 + te * LDB + k0);
-          const float2 s1 = rnd2<true>(sigmoid_bf(z1));
+          const float2 s1 = rnd2<true>(sigmoid2(z1));
           const float2 dz1 = make_float2(t.x * dsilu(z1.x, s1.x), t.y * dsilu(z1.y, s1.y));
           dz1c = rnd2<true>(dz1);
           const float d_radial = warp_sum(dz1.x * w1r.x + dz1.y * w1r.y);
@@ -958,10 +953,10 @@ extern "C" int fastegnn_edge_bwd(int bf16, const void* ud, const void* us,
         static_cast<const __nv_bfloat16*>(ud), static_cast<const __nv_bfloat16*>(us), x,
         rowptr, src, ea, fe, wpack, dms, dts, dud, dus, dxd, dxs, dw, n);
   } else {
-    err = cudaFuncSetAttribute(edge_bwd_kernel<float, false>,
+    err = cudaFuncSetAttribute(edge_bwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
     if (err != cudaSuccess) return (int)err;
-    edge_bwd_kernel<float, false><<<grid, THREADS, BWD_SMEM, st>>>(
+    edge_bwd_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
         static_cast<const float*>(ud), static_cast<const float*>(us), x, rowptr, src, dst,
         ea, fe, wpack, dms, dts, dud, dus, dxd, dxs, dw, n);
   }

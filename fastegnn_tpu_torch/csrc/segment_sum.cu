@@ -37,7 +37,7 @@
 // warps' through shared memory, so the result is deterministic; each output
 // row is written exactly once (empty rows write 0): no memset, no atomics.
 // Against one warp per row, the extra warps per row were what moved the time
-// (PERF.md, from kernel_lab.py).
+// (PERF.md, from scripts/torch_kernel_lab.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 

@@ -1,18 +1,20 @@
 """Design comparisons of the port's segment-sum and bf16 edge-backward kernels, on one GPU.
 
-    python -m fastegnn_tpu_torch.kernel_lab
+    python3 scripts/torch_kernel_lab.py
 
-Each variant is the committed source in ``csrc/`` with named constants changed,
-or with one part of a kernel removed, by text substitutions that must match.
+Each variant is the committed source in ``fastegnn_tpu_torch/csrc/`` with
+named constants changed, or with one part of a kernel removed, by text
+substitutions that must match.
 The variants compile in parallel with nvcc into ``_build/lab/`` and are timed
 at the shapes ``chip_smoke.py`` uses (the 8000-node Water-3D-shaped graph,
-seed 0), as medians over runs of back-to-back launches between CUDA events:
+seed 0), as medians over runs of back-to-back launches between CUDA events
+(``chip_smoke.median_ms``):
 
 - segment_sum: warps per output row and lane groups per warp, in the three
   forms of the variant path, beside ``torch.segment_reduce``;
-- edge_block_bwd in bf16: dst rows per block, the sigmoid, and knockouts
-  that each remove one part of the kernel to attribute its time (a
-  knockout's output is wrong; only its time is read).
+- edge_block_bwd in bf16: dst rows per block, an approximate sigmoid, and
+  knockouts that each remove one part of the kernel to attribute its time
+  (a knockout's output is wrong; only its time is read).
 
 Prints one line per variant: ms, and the largest error against the plain
 version relative to the largest value of each output.
@@ -22,16 +24,18 @@ from __future__ import annotations
 
 import ctypes
 import re
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 from typing import Callable, Dict, List
 
-import torch
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fastegnn_tpu_torch.data.synthetic_water import build_batch
-from fastegnn_tpu_torch.ops import _cuda_build, edge_kernel as ek, spmm
+import torch  # noqa: E402
+
+from chip_smoke import median_ms  # noqa: E402
+from fastegnn_tpu_torch.data.synthetic_water import build_batch  # noqa: E402
+from fastegnn_tpu_torch.ops import _cuda_build, edge_kernel as ek, spmm  # noqa: E402
 
 LAB_DIR = _cuda_build.BUILD_DIR / "lab"
 TC_MARK = "// bf16 backward on the tensor cores"
@@ -69,16 +73,16 @@ SEGSUM: Dict[str, List[Edit]] = {
     "8 warps x 4 groups": [knobs(ROW_WARPS=8)],
 }
 
-_EXACT_SIG = "make_float2(sigmoid(z.x), sigmoid(z.y))"
+_EXACT_SIG = "make_float2(sigmoid(z.x), sigmoid(z.y))"   # edge_bwd_tc_kernel's sigmoid2
 _FAST_SIG = ("make_float2(__fdividef(1.f, 1.f + __expf(-z.x)), "
              "__fdividef(1.f, 1.f + __expf(-z.y)))")
 EDGE_BWD: Dict[str, List[Edit]] = {
     "committed: 4 dst rows per block": [],
     "8 dst rows per block": [knobs(TC_ROWS=8)],
     "2 dst rows per block": [knobs(TC_ROWS=2)],
-    "exact sigmoid (expf, IEEE division)": [sub(_FAST_SIG, _EXACT_SIG)],
+    "approximate sigmoid (__expf, __fdividef)": [sub(_EXACT_SIG, _FAST_SIG)],
     "knockout: sigmoids": [
-        sub(_FAST_SIG, "make_float2(0.5f + 0.25f * z.x, 0.5f + 0.25f * z.y)")],
+        sub(_EXACT_SIG, "make_float2(0.5f + 0.25f * z.x, 0.5f + 0.25f * z.y)")],
     "knockout: the four chain products": [
         sub("  const int fi = warp >> 1, fk = 2 * (warp & 1);\n  FragC c[2];",
             "  if (warp >= 0) return;\n  const int fi = warp >> 1, fk = 2 * (warp & 1);\n"
@@ -119,21 +123,6 @@ def build(source: str, variants: Dict[str, List[Edit]]) -> Dict[str, ctypes.CDLL
             raise RuntimeError(f"nvcc failed for {source} variant {name!r}:\n{out}")
         libs[name] = ctypes.CDLL(str(cu.with_suffix(".so")))
     return libs
-
-
-def median_ms(fn, runs: int = 7, inner: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def rel_err(got, want) -> float:
@@ -210,7 +199,7 @@ def edge_bwd_lab(g) -> None:
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("kernel_lab: needs a CUDA device", file=sys.stderr)
+        print("torch_kernel_lab: needs a CUDA device", file=sys.stderr)
         return 1
     print(f"[lab] {torch.cuda.get_device_name(0)}", flush=True)
     g, _, _ = build_batch(8000, 60, channels=3, seed=0, device="cuda")

@@ -107,15 +107,20 @@ def _ragged_csr(rng, n, long_row, long_deg, empty):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("fe", [0, 1, 3])
 def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
-    # 16-row blocks of 64-edge tiles: a hub row of 150 edges spans three
-    # tiles, rows 16..31 (a whole block) and a few more have no edges, the
-    # last tile of a block is partly empty, and a padded tail past
-    # rowptr[N] must not be read
+    # both blockings: the f32 kernel's 16-row blocks of 32-edge tiles and
+    # the bf16 kernel's 4-row blocks of 64-edge tiles.  A hub row of 150
+    # edges spans several tiles of either; rows 16..31 (a whole block of
+    # either) and a few more have no edges; blocks end in a partly empty
+    # tile; the last bf16 block has 2 rows; a padded tail past rowptr[N]
+    # must not be read
     rng = np.random.default_rng(fe)
     n, pad = 70, 9
     deg, rowptr = _ragged_csr(rng, n, 5, 150, [*range(16, 32), 40, 41, 69])
     e = int(rowptr[-1])
-    assert e % 64 and (rowptr[48] - rowptr[32]) % 64
+    assert e % 32 and (rowptr[48] - rowptr[32]) % 32 and rowptr[16] - rowptr[0] > 4 * 32
+    assert rowptr[20] == rowptr[16] and n % 4 == 2
+    assert (rowptr[8] - rowptr[4]) % 64 and rowptr[8] - rowptr[4] > 2 * 64
+    assert (rowptr[36] - rowptr[32]) % 64 and rowptr[36] > rowptr[32]
     dst = np.concatenate([np.repeat(np.arange(n), deg), np.full(pad, n)]).astype(np.int32)
     src = np.concatenate([rng.integers(0, n, e), np.zeros(pad)]).astype(np.int32)
     ea = np.concatenate([rng.normal(size=(e, fe)), np.full((pad, fe), 9.0)]).astype(np.float32)
