@@ -49,7 +49,7 @@ KERNEL_RUNS, KERNEL_INNER = 7, 10   # median over runs of back-to-back launches
 SEGSUM_F = HIDDEN + 3   # the variant path sums [m_e | trans] and grads of [h | x]
 SEGSUM_TOL = 1e-5       # both versions sum in f32, possibly in another order
 # the port's kernels, which [profile] lists wherever they rank
-OWN_KERNELS = ("edge_fwd_kernel", "edge_bwd", "segment_sum_kernel")
+OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
 TOL = {("fwd", False): 1e-5, ("bwd", False): 5e-5,   # f32; bwd sums with atomics
        ("fwd", True): 2e-2, ("bwd", True): 2e-2}     # bf16: one bf16 ulp can flip
@@ -390,9 +390,8 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     print(f"[build] {seconds:.2f} s for {sorted(reports) or 'cached'}", flush=True)
     for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for line in _cuda_build.resource_lines(text):
+            print(f"[build] {name}: {line}", flush=True)
 
     t0 = time.perf_counter()
     g, n_real, stats = build_batch(N_NODES, DEGREE, channels=CHANNELS, seed=0, device="cuda")

@@ -17,48 +17,62 @@
 // forward and 6 backward, against a few hundred bytes of gathered rows per
 // edge, so operations, not bytes (about 10 us forward and 29 us backward per
 // layer at the bf16 tensor-core rate for the Water-3D graph's 580k edges).
-// Every per-edge intermediate stays out of device memory:
+// Every per-edge intermediate stays out of device memory.
 //
-// - forward (edge_fwd_kernel, both modes): one warp per dst row walks
+// bf16 mode (the main path) runs on the tensor cores: one block of 8 warps
+// owns TC_ROWS = 4 dst rows and walks their edges in tiles of TC_TE = 64,
+// each tile staged as bf16 [64][64] in shared memory.  Both kernels build a
+// tile with the same stage code (TileWalk): the per-edge scalars (src, dst
+// row, x_d - x_s, radial, rounded edge attributes; src ids a tile ahead), the
+// Us rows by cp.async a tile ahead, then z1 and a1 = silu(z1); z2 = a1 W2
+// (tile_product: wmma bf16 16x16x16, f32 accumulators, through one f32
+// scratch tile) and m = silu(z2); zg = m Wg1 and the gate (gate_of, one warp
+// reduction per edge).  Every operand of those products is already a bf16
+// value (a1, m, the W2 / Wg1 pack rows; the JAX kernel casts them there), so
+// the tensor cores form the same products exactly and only the order of the
+// f32 sums changes.  The backward runs the forward's stages on the same
+// operands over the same tiles, so it recomputes the forward's chain bit for
+// bit.  Between products, one warp per edge row runs the elementwise chain
+// with an exact logistic (expf, IEEE division).
+//
+// - forward in bf16 (edge_fwd_tc_kernel): per tile, (x_d - x_s) gate goes to
+//   per-warp t_sum rows in shared memory, and m_sum += P @ m, one more
+//   product with P [16 x 64 edges] the tile's one-hot dst rows, in
+//   accumulator fragments kept across tiles (exact: m is a bf16 value, P is
+//   0 or 1).  After the last tile the block stores its m_sum rows once and
+//   its t_sum rows as the fixed-order sum of the per-warp rows: no atomics,
+//   deterministic; rows without edges, blocks without edges too, get zeros.
+//   With the products off the CUDA cores, the elementwise passes (three
+//   sigmoids per feature per edge) and the products' round trips through
+//   the scratch tile bound it (PERF.md, from scripts/torch_kernel_lab.py),
+//   at FWD_BLOCKS = 3 blocks per SM, ~70 KB of shared memory each.
+// - backward in bf16 (edge_bwd_tc_kernel): after the forward's stages, per
+//   tile d_m = d_zg Wg1^T and d_a1 = d_z2 W2^T; dW2 += a1^T d_z2 and dWg1 +=
+//   m^T d_zg in accumulator fragments kept across tiles; and PQ @ d_z1, where
+//   PQ holds the tile's one-hot dst rows and its rounded radial and edge
+//   attributes, which sums the dst-role dUd rows and the dW1 radial /
+//   edge-attr rows in one more fragment per warp (each dUd row stored once,
+//   by the block that owns it).  The dst-role dx sums go to per-warp rows in
+//   shared memory, the src-role sums (dUs, dx_src) out with f32 atomics.
+//   The sigmoids take the largest share of its time, then the products'
+//   round trips, the warp reductions and the atomics (PERF.md), at 2 blocks
+//   per SM, where 128 registers and ~111 KB of shared memory per block hold it.
+//
+// f32 mode stays on the CUDA cores as exact FP32 FMAs: the only f32
+// tensor-core path, TF32, rounds the operands to 10 mantissa bits and would
+// break the f32 contract.
+// - forward in f32 (edge_fwd_kernel): one warp per dst row walks
 //   rowptr[row]..rowptr[row+1]; each lane owns two of the 64 features; W2 and
 //   Wg1 sit in shared memory; the row's sums stay in registers and are
-//   written once (no atomics, deterministic).  The products run as FP32 FMAs
-//   on the CUDA cores, one edge per warp at a time, ~100x above the bound
-//   (PERF.md); moving them to the tensor cores is later work.
-// - backward in f32 (edge_bwd_kernel): one block per range of
-//   BWD_ROWS dst rows, in tiles of TE edges (TE / WARPS per warp).  Phase 1
-//   recomputes the chain and its backward per edge with FP32 FMAs and stages
-//   a1, m, d_zg, d_z2, d_z1 in shared memory; src-role sums (dUs, dx_src) go
-//   out with f32 atomicAdd.  Phase 2 accumulates the dW2 / dWg1 outer
-//   products into 4x4 register tiles per thread and the dst-role sums (dUd,
-//   dx_dst) per row, written once by the block that owns the row.  It stays
-//   on the CUDA cores because the only f32 tensor-core path, TF32, rounds
-//   the operands to 10 mantissa bits and would break the f32 contract.
-// - backward in bf16 (edge_bwd_tc_kernel): one block per TC_ROWS = 4 dst
-//   rows, over tiles of TC_TE = 64 edges, with every product on the tensor
-//   cores (wmma bf16 16x16x16, f32 accumulators): per tile z2 = a1 W2,
-//   zg = m Wg1, d_m = d_zg Wg1^T, d_a1 = d_z2 W2^T; dW2 += a1^T d_z2 and
-//   dWg1 += m^T d_zg in accumulator fragments kept across tiles; and
-//   PQ @ d_z1, where PQ holds the tile's one-hot dst rows and its rounded
-//   radial and edge attributes, which sums the dst-role dUd rows and the dW1
-//   radial / edge-attr rows in one more fragment per warp (deterministic:
-//   each dUd row is stored once, by the block that owns it).  In bf16 mode
-//   every operand of those products is already a bf16 value (a1, m, d_zg,
-//   d_z2, d_z1, the W2 / Wg1 pack rows, the rounded radial and edge
-//   attributes; the JAX kernel casts them there), so the tensor cores form
-//   the same products exactly and only the order of the f32 sums changes.
-//   Each tile is staged as bf16 [64][64] in shared memory (z1 then d_z1, a1,
-//   z2, m, d_zg, d_z2) beside one f32 scratch tile for the product results;
-//   between products, one warp per edge row runs the elementwise chain
-//   (the forward's exact sigmoid, so the recomputed chain is the forward's
-//   bit for bit; gate and d_radial by warp reductions; the rounding), and
-//   the dst-role dx sums go to per-warp rows in shared memory.  The next
-//   tile's Us rows arrive by cp.async and its src ids a tile ahead.  With
-//   the products off the CUDA cores, the sigmoids take the largest share of
-//   the time, then the products' shared-memory round trips, the warp
-//   reductions and the src-role atomics (PERF.md, from
-//   scripts/torch_kernel_lab.py), at 2 blocks of 8 warps per SM, where 128
-//   registers and ~111 KB of shared memory per block hold it.
+//   written once (no atomics, deterministic); one edge per warp at a time,
+//   ~100x above the bound (PERF.md).
+// - backward in f32 (edge_bwd_kernel): one block per range of BWD_ROWS dst
+//   rows, in tiles of TE edges (TE / WARPS per warp).  Phase 1 recomputes the
+//   chain with the forward's chain_fwd, and its backward, per edge, and
+//   stages a1, m, d_zg, d_z2, d_z1 in shared memory; src-role sums (dUs,
+//   dx_src) go out with f32 atomicAdd.  Phase 2 accumulates the dW2 / dWg1
+//   outer products into 4x4 register tiles per thread and the dst-role sums
+//   (dUd, dx_dst) per row, written once by the block that owns the row.
 // Each backward block adds its weight-gradient tiles to dw with one atomic per
 // entry.  The atomics make dUs, dx and dw vary in the last bits from run to
 // run; dUd and the forward are deterministic.
@@ -94,19 +108,12 @@ constexpr int BWD_ROWS = 16;   // dst rows per backward block
 constexpr size_t BWD_SMEM =
     (4 * H * H + 5 * TE * H + 4 * TE) * sizeof(float) + TE * sizeof(int);
 
-template <bool BF>
+// round to bf16 and back
 __device__ __forceinline__ float rnd(float v) {
-  if constexpr (BF) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool BF>
-__device__ __forceinline__ float2 rnd2(float2 v) {
-  return make_float2(rnd<BF>(v.x), rnd<BF>(v.y));
-}
+__device__ __forceinline__ float2 rnd2(float2 v) { return make_float2(rnd(v.x), rnd(v.y)); }
 
 __device__ __forceinline__ float2 load2(const float* p, long i) {
   return *reinterpret_cast<const float2*>(p + i);
@@ -177,11 +184,11 @@ struct Chain {
   float ea[FE_MAX];
 };
 
-// Recompute the chain of edge (d, s).  bufA / bufM are this warp's 64-float
-// shared buffers for a1 and m (the operands of the two chain products); the
-// caller synchronises the warp before a buffer is reused.
-template <typename T, bool BF>
-__device__ __forceinline__ void chain_fwd(Chain& c, float2 ud, const T* __restrict__ us,
+// The f32 chain of edge (d, s), for the f32 forward and backward.  bufA /
+// bufM are this warp's 64-float shared buffers for a1 and m (the operands of
+// the two chain products); the caller synchronises the warp before a buffer
+// is reused.
+__device__ __forceinline__ void chain_fwd(Chain& c, float2 ud, const float* __restrict__ us,
                                           int s, const float* __restrict__ x,
                                           const float* xd, const float* __restrict__ ea_row,
                                           int fe, const LaneW& w, const float* sW2,
@@ -195,34 +202,33 @@ __device__ __forceinline__ void chain_fwd(Chain& c, float2 ud, const T* __restri
   float2 eterm = make_float2(0.f, 0.f);
 #pragma unroll
   for (int f = 0; f < FE_MAX; ++f) {
-    c.ea[f] = f < fe ? rnd<BF>(ea_row[f]) : 0.f;
+    c.ea[f] = f < fe ? ea_row[f] : 0.f;
     eterm.x += c.ea[f] * w.w1e[f].x;
     eterm.y += c.ea[f] * w.w1e[f].y;
   }
-  c.z1 = rnd2<BF>(make_float2((ud.x + u.x) + c.radial * w.w1r.x + eterm.x,
-                              (ud.y + u.y) + c.radial * w.w1r.y + eterm.y));
-  c.s1 = rnd2<BF>(make_float2(sigmoid(c.z1.x), sigmoid(c.z1.y)));
-  c.a1 = rnd2<BF>(make_float2(c.z1.x * c.s1.x, c.z1.y * c.s1.y));
+  c.z1 = make_float2((ud.x + u.x) + c.radial * w.w1r.x + eterm.x,
+                     (ud.y + u.y) + c.radial * w.w1r.y + eterm.y);
+  c.s1 = make_float2(sigmoid(c.z1.x), sigmoid(c.z1.y));
+  c.a1 = make_float2(c.z1.x * c.s1.x, c.z1.y * c.s1.y);
   bufA[k0] = c.a1.x;
   bufA[k0 + 1] = c.a1.y;
   __syncwarp();
   float2 t = matvec(bufA, sW2, k0);
-  c.z2 = rnd2<BF>(make_float2(t.x + w.b2.x, t.y + w.b2.y));
-  c.s2 = rnd2<BF>(make_float2(sigmoid(c.z2.x), sigmoid(c.z2.y)));
-  c.m = rnd2<BF>(make_float2(c.z2.x * c.s2.x, c.z2.y * c.s2.y));
+  c.z2 = make_float2(t.x + w.b2.x, t.y + w.b2.y);
+  c.s2 = make_float2(sigmoid(c.z2.x), sigmoid(c.z2.y));
+  c.m = make_float2(c.z2.x * c.s2.x, c.z2.y * c.s2.y);
   bufM[k0] = c.m.x;
   bufM[k0 + 1] = c.m.y;
   __syncwarp();
   t = matvec(bufM, sWg1, k0);
-  c.zg = rnd2<BF>(make_float2(t.x + w.bg1.x, t.y + w.bg1.y));
-  c.sg = rnd2<BF>(make_float2(sigmoid(c.zg.x), sigmoid(c.zg.y)));
-  c.g1 = rnd2<BF>(make_float2(c.zg.x * c.sg.x, c.zg.y * c.sg.y));
+  c.zg = make_float2(t.x + w.bg1.x, t.y + w.bg1.y);
+  c.sg = make_float2(sigmoid(c.zg.x), sigmoid(c.zg.y));
+  c.g1 = make_float2(c.zg.x * c.sg.x, c.zg.y * c.sg.y);
   c.gate = warp_sum(c.g1.x * w.wg2.x + c.g1.y * w.wg2.y);
 }
 
-template <typename T, bool BF>
 __global__ void __launch_bounds__(THREADS)
-edge_fwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
+edge_fwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
                 const float* __restrict__ x, const int* __restrict__ rowptr,
                 const int* __restrict__ src, const float* __restrict__ ea, int fe,
                 const float* __restrict__ wpack, float* __restrict__ msum,
@@ -248,8 +254,8 @@ edge_fwd_kernel(const T* __restrict__ ud, const T* __restrict__ us,
     for (int e = e0; e < e1; ++e) {
       Chain c;
       __syncwarp();
-      chain_fwd<T, BF>(c, udr, us, src[e], x, xd, ea + (long)e * fe, fe, w, sW2, sWg1,
-                       bufA, bufM, k0);
+      chain_fwd(c, udr, us, src[e], x, xd, ea + (long)e * fe, fe, w, sW2, sWg1, bufA, bufM,
+                k0);
       accm.x += c.m.x;
       accm.y += c.m.y;
 #pragma unroll
@@ -337,8 +343,7 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
       const float2 udr = load2(ud, (long)d * H + k0);
       const float xd[3] = {x[3 * d], x[3 * d + 1], x[3 * d + 2]};
       Chain c;
-      chain_fwd<float, false>(c, udr, us, s, x, xd, ea + (long)e * fe, fe, w, sW2, sWg1,
-                              a1r, mr, k0);
+      chain_fwd(c, udr, us, s, x, xd, ea + (long)e * fe, fe, w, sW2, sWg1, a1r, mr, k0);
 
       const float dt[3] = {dts[3 * d], dts[3 * d + 1], dts[3 * d + 2]};
       const float2 dm = load2(dms, (long)d * H + k0);
@@ -452,7 +457,7 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores
+// bf16 forward and backward on the tensor cores
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -464,19 +469,24 @@ using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int TC_TE = 64;               // edges per tile (the products' M dimension)
 constexpr int TC_ROWS = 4;              // dst rows per block
+constexpr int FWD_BLOCKS = 3;           // forward blocks per SM
 constexpr int TC_EPW = TC_TE / WARPS;   // edges per warp in the elementwise passes
 constexpr int LDB = H + 8;              // bf16 tile row stride (elements)
 constexpr int LDF = H + 4;              // f32 scratch row stride (elements)
 constexpr int TC_TILE = TC_TE * LDB;    // one bf16 [TC_TE][LDB] tile
 // rows of the per-tile matrix PQ [PQ_ROWS][TC_TE]: one-hot dst rows 0..15,
 // then the rounded radial and edge attributes, then zeros; PQ @ d_z1 gives
-// the dst-role dUd rows and the dW1 radial / edge-attr rows
+// the dst-role dUd rows and the dW1 radial / edge-attr rows.  The forward's
+// P is the one-hot part, PQ's first PQ_RAD rows.
 constexpr int PQ_ROWS = 32, PQ_RAD = 16, PQ_EA = 17;
 // the per-feature weights, f32 [LW_ROWS][H] in shared memory
 constexpr int LW_W1R = 0, LW_WG2 = 1, LW_B2 = 2, LW_BG1 = 3, LW_W1E = 4, LW_ROWS = 7;
 static_assert(TC_TE == H, "the weight tiles and the edge tiles share one size");
+static_assert(TC_EPW * 4 == 32, "fetch_rows: four lanes per Us row, eight rows per warp");
 static_assert(TC_ROWS <= PQ_RAD, "one-hot rows of PQ");
 static_assert(PQ_ROWS * H == WARPS * 256, "PQ @ d_z1: one 16x16 output tile per warp");
+static_assert(PQ_RAD * H / 256 * 2 == WARPS && TC_TE % 32 == 0,
+              "P @ m: four 16x16 output tiles, each over two halves of the edges");
 static_assert(6 * TC_TILE * sizeof(bf16) >= H * LDF * sizeof(float),
               "the epilogue's [H][LDF] f32 sums fit over the edge tiles");
 constexpr size_t TC_SMEM =
@@ -488,6 +498,17 @@ constexpr size_t TC_SMEM =
     + 3 * TC_TE * 4 * sizeof(float)               // per edge: diff | radial, ea, d_diff
     + WARPS * TC_ROWS * 4 * sizeof(float)         // per-warp dx_dst sums
     + (2 * TC_TE + TC_ROWS + 1) * sizeof(int);    // per edge: src, row; rowptr
+constexpr size_t FWD_SMEM =
+    5 * TC_TILE * sizeof(bf16)                    // W2, Wg1, A1, M, Us
+    + PQ_RAD * LDB * sizeof(bf16)                 // P: one-hot dst rows
+    + TC_TE * LDF * sizeof(float)                 // f32 scratch
+    + LW_ROWS * H * sizeof(float)                 // per-feature weights
+    + TC_ROWS * 4 * sizeof(float)                 // x rows of the block
+    + 2 * TC_TE * 4 * sizeof(float)               // per edge: diff | radial, ea
+    + WARPS * TC_ROWS * 4 * sizeof(float)         // per-warp t_sum rows
+    + (2 * TC_TE + TC_ROWS + 1) * sizeof(int);    // per edge: src, row; rowptr
+static_assert(FWD_BLOCKS * (FWD_SMEM + 1024) <= 228 * 1024,
+              "FWD_BLOCKS forward blocks fit in one SM's shared memory");
 
 __device__ __forceinline__ void store_bf2(bf16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
@@ -501,8 +522,6 @@ __device__ __forceinline__ float2 load_f2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// The logistic of edge_fwd_kernel's chain, so that the recomputed chain is
-// the forward's bit for bit.
 __device__ __forceinline__ float2 sigmoid2(float2 z) {
   return make_float2(sigmoid(z.x), sigmoid(z.y));
 }
@@ -569,91 +588,98 @@ __device__ __forceinline__ void grad_product(const bf16* X, const bf16* Y, FragC
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
-                   const float* __restrict__ x, const int* __restrict__ rowptr,
-                   const int* __restrict__ src, const float* __restrict__ ea, int fe,
-                   const float* __restrict__ wpack, const float* __restrict__ dms,
-                   const float* __restrict__ dts, float* __restrict__ dud,
-                   float* __restrict__ dus, float* __restrict__ dxd,
-                   float* __restrict__ dxs, float* __restrict__ dw, int n) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* sW2 = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sWg1 = sW2 + TC_TILE;
-  bf16* sZ1 = sWg1 + TC_TILE;   // z1 per edge, then d_z1 (rounded)
-  bf16* sA1 = sZ1 + TC_TILE;    // a1 = silu(z1)
-  bf16* sZ2 = sA1 + TC_TILE;    // z2
-  bf16* sM = sZ2 + TC_TILE;     // m = silu(z2)
-  bf16* sDZG = sM + TC_TILE;    // d_zg (rounded)
-  bf16* sDZ2 = sDZG + TC_TILE;  // d_z2 (rounded)
-  bf16* sUS = sDZ2 + TC_TILE;   // Us rows of the tile's src nodes
-  bf16* sPQ = sUS + TC_TILE;    // [PQ_ROWS][LDB]
-  float* sS = reinterpret_cast<float*>(sPQ + PQ_ROWS * LDB);  // product results
-  float* sLW = sS + TC_TE * LDF;          // [LW_ROWS][H]
-  float* sXD = sLW + LW_ROWS * H;         // [TC_ROWS][4] x
-  float* sDT = sXD + TC_ROWS * 4;         // [TC_ROWS][4] d t_sum
-  float* sDIFF = sDT + TC_ROWS * 4;       // [TC_TE][4] x_d - x_s, radial
-  float* sEA = sDIFF + TC_TE * 4;         // [TC_TE][4] edge attrs (rounded)
-  float* sDD = sEA + TC_TE * 4;           // [TC_TE][4] d(x_d - x_s)
-  float* sDXD = sDD + TC_TE * 4;          // [WARPS][TC_ROWS][4] dx_dst sums
-  int* sSRC = reinterpret_cast<int*>(sDXD + WARPS * TC_ROWS * 4);  // [TC_TE] src
-  int* sROW = sSRC + TC_TE;               // [TC_TE] dst row - r0; -1 past the last edge
-  int* sRP = sROW + TC_TE;                // [TC_ROWS + 1] rowptr[r0 ..]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, k0 = 2 * lane;
-  const int r0 = blockIdx.x * TC_ROWS;
-  const int nr = min(n - r0, TC_ROWS);
-  const int e0 = rowptr[r0], e1 = rowptr[r0 + nr];
-  if (e0 >= e1) return;  // block-uniform: rows without edges keep their zeros
-
-  // the weights as bf16 (lossless: the pack holds bf16 values in this mode),
-  // the per-feature weights, the block's dst rows and zeroed sums
-  for (int i = tid; i < H * H; i += THREADS) {
-    const int j = i / H, k = i % H;
-    sW2[j * LDB + k] = __float2bfloat16_rn(wpack[ROW_W2 * H + i]);
-    sWg1[j * LDB + k] = __float2bfloat16_rn(wpack[ROW_WG1 * H + i]);
-  }
-  for (int i = tid; i < LW_ROWS * H; i += THREADS) {
-    const int row = i / H, k = i % H;
-    const int src_row = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
-                        : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
-                        : ROW_W1E + row - LW_W1E;
-    sLW[i] = row < LW_W1E || row - LW_W1E < fe ? wpack[src_row * H + k] : 0.f;
-  }
-  for (int i = tid; i < PQ_ROWS * LDB; i += THREADS) sPQ[i] = __float2bfloat16_rn(0.f);
-  if (tid < TC_ROWS * 4) {
-    const int r = tid >> 2, c = tid & 3;
-    const bool in = r < nr && c < 3;
-    sXD[tid] = in ? x[3 * (r0 + r) + c] : 0.f;
-    sDT[tid] = in ? dts[3 * (r0 + r) + c] : 0.f;
-  }
-  for (int i = tid; i < WARPS * TC_ROWS * 4; i += THREADS) sDXD[i] = 0.f;
-  if (tid <= nr) sRP[tid] = rowptr[r0 + tid];
-
-  float2 g_b2 = make_float2(0.f, 0.f), g_bg1 = g_b2, g_wg2 = g_b2;
-  FragC gW2[2], gWg1[2], gPQ;  // dW2, dWg1, PQ @ d_z1 tiles of this warp, across tiles
+// acc += PQ[16 fi : 16 fi + 16][E] @ Y[E] for the output tile (fi, fk), E the
+// tile's edges 16 kk0 .. 16 (kk0 + NK): per-edge rows of PQ [rows][LDB] (one-hot
+// dst rows and the like) summed over an edge tile Y [TC_TE][LDB].
+template <int NK>
+__device__ __forceinline__ void rows_product(const bf16* PQ, const bf16* Y, FragC& acc,
+                                             int fi, int fk, int kk0) {
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    wmma::fill_fragment(gW2[u], 0.f);
-    wmma::fill_fragment(gWg1[u], 0.f);
+  for (int i = 0; i < NK; ++i) {
+    const int kk = kk0 + i;
+    FragA a;
+    wmma::load_matrix_sync(a, PQ + 16 * fi * LDB + 16 * kk, LDB);
+    FragB b;
+    wmma::load_matrix_sync(b, Y + 16 * kk * LDB + 16 * fk, LDB);
+    wmma::mma_sync(acc, a, b, acc);
   }
-  wmma::fill_fragment(gPQ, 0.f);
+}
 
-  // Lanes 0..7 of warp w own edge t0 + 8 w + lane of each tile.  Its src id
-  // and edge attributes arrive a tile ahead; its x row and the Us row (by
-  // cp.async into sUS, rows of this warp only) are fetched halfway through the
-  // tile before.
-  const int te_own = warp * TC_EPW + (lane & (TC_EPW - 1));
-  int s_nx = 0;
-  float ea_nx[FE_MAX] = {0.f, 0.f, 0.f}, xs_nx[3] = {0.f, 0.f, 0.f};
-  if (lane < TC_EPW && e0 + te_own < e1) {
-    s_nx = src[e0 + te_own];
+// zg = t + bg1 (t: this lane's two columns of m Wg1), sg = sigmoid(zg) and
+// g1 = zg sg, each rounded to bf16; returns the edge's gate g1 . wg2, summed
+// over the warp.
+__device__ __forceinline__ float gate_of(float2 t, float2 bg1, float2 wg2, float2& zg,
+                                         float2& sg, float2& g1) {
+  zg = rnd2(make_float2(t.x + bg1.x, t.y + bg1.y));
+  sg = rnd2(sigmoid2(zg));
+  g1 = rnd2(make_float2(zg.x * sg.x, zg.y * sg.y));
+  return warp_sum(g1.x * wg2.x + g1.y * wg2.y);
+}
+
+// One block's walk over the edge tiles of its TC_ROWS dst rows r0 .. r0 + nr:
+// the shared tiles and per-edge scalars both tensor-core kernels stage, and
+// the stages they share.  Lanes 0..TC_EPW-1 of warp w own edge
+// t0 + TC_EPW w + lane of each tile: its src id and edge attributes arrive a
+// tile ahead; its x row and the Us row (by cp.async into sUS, rows of this
+// warp only) are fetched halfway through the tile before.
+struct TileWalk {
+  bf16 *sW2, *sWg1;   // [H][LDB] weights
+  bf16 *sA1, *sM;     // [TC_TE][LDB] a1 = silu(z1), m = silu(z2)
+  bf16* sUS;          // [TC_TE][LDB] Us rows of the tile's src nodes
+  bf16* sPQ;          // [PQ_RAD or PQ_ROWS][LDB]
+  float* sS;          // [TC_TE][LDF] product results
+  float* sLW;         // [LW_ROWS][H] per-feature weights
+  float* sXD;         // [TC_ROWS][4] x of the block's rows
+  float* sDIFF;       // [TC_TE][4] x_d - x_s, radial
+  float* sEA;         // [TC_TE][4] edge attrs (rounded)
+  int* sSRC;          // [TC_TE] src
+  int* sROW;          // [TC_TE] dst row - r0; -1 past the last edge
+  int* sRP;           // [TC_ROWS + 1] rowptr[r0 ..]
+  const bf16 *ud, *us;
+  const float *x, *ea;
+  const int* src;
+  int fe, r0, nr, e1, warp, lane, k0, te_own;
+  int s_nx;                       // the lane's edge of the next tile: src,
+  float ea_nx[FE_MAX], xs_nx[3];  // edge attrs, x of the src
+
+  // The weights as bf16 (lossless: the pack holds bf16 values in this mode),
+  // the per-feature weights, the block's x rows and rowptr, and the first
+  // tile's src ids and edge attributes.
+  __device__ __forceinline__ void setup(const float* wpack, const int* rowptr, int e0) {
+    const int tid = threadIdx.x;
+    for (int i = tid; i < H * H; i += THREADS) {
+      const int j = i / H, k = i % H;
+      sW2[j * LDB + k] = __float2bfloat16_rn(wpack[ROW_W2 * H + i]);
+      sWg1[j * LDB + k] = __float2bfloat16_rn(wpack[ROW_WG1 * H + i]);
+    }
+    for (int i = tid; i < LW_ROWS * H; i += THREADS) {
+      const int row = i / H, k = i % H;
+      const int src_row = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
+                          : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
+                          : ROW_W1E + row - LW_W1E;
+      sLW[i] = row < LW_W1E || row - LW_W1E < fe ? wpack[src_row * H + k] : 0.f;
+    }
+    if (tid < TC_ROWS * 4) {
+      const int r = tid >> 2, c = tid & 3;
+      sXD[tid] = r < nr && c < 3 ? x[3 * (r0 + r) + c] : 0.f;
+    }
+    if (tid <= nr) sRP[tid] = rowptr[r0 + tid];
+    te_own = warp * TC_EPW + (lane & (TC_EPW - 1));
+    s_nx = 0;
 #pragma unroll
-    for (int f = 0; f < FE_MAX; ++f)
-      if (f < fe) ea_nx[f] = ea[(long)(e0 + te_own) * fe + f];
+    for (int f = 0; f < FE_MAX; ++f) ea_nx[f] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) xs_nx[c] = 0.f;
+    if (lane < TC_EPW && e0 + te_own < e1) {
+      s_nx = src[e0 + te_own];
+#pragma unroll
+      for (int f = 0; f < FE_MAX; ++f)
+        if (f < fe) ea_nx[f] = ea[(long)(e0 + te_own) * fe + f];
+    }
   }
+
   // the src rows of the tile at tn for this warp's edges: x into xs_nx, Us into sUS
-  auto fetch_rows = [&](int tn) {
+  __device__ __forceinline__ void fetch_rows(int tn) {
     const int i = lane >> 2, q = lane & 3;  // edge of the warp, quarter of its Us row
     const int s = __shfl_sync(0xffffffffu, s_nx, i);
     if (tn + warp * TC_EPW + i < e1) {
@@ -667,12 +693,11 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
 #pragma unroll
       for (int c = 0; c < 3; ++c) xs_nx[c] = x[3 * s_nx + c];
     }
-  };
-  fetch_rows(e0);
-  __syncthreads();
+  }
 
-  for (int t0 = e0; t0 < e1; t0 += TC_TE) {
-    // ---- per-edge scalars: src, dst row, diff, radial, edge attrs ----
+  // per-edge scalars of the tile at t0: src, dst row, diff, radial, edge
+  // attrs; then the next tile's src ids and edge attributes
+  __device__ __forceinline__ void stage_scalars(int t0) {
     if (lane < TC_EPW) {
       const int te = te_own, e = t0 + te;
       if (e < e1) {
@@ -687,7 +712,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         }
         sDIFF[4 * te + 3] = rad;
 #pragma unroll
-        for (int f = 0; f < FE_MAX; ++f) sEA[4 * te + f] = rnd<true>(ea_nx[f]);
+        for (int f = 0; f < FE_MAX; ++f) sEA[4 * te + f] = rnd(ea_nx[f]);
         sSRC[te] = s_nx;
         sROW[te] = r;
         const int en = e + TC_TE;
@@ -701,10 +726,14 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
         sROW[te] = -1;
       }
     }
-    __syncwarp();
-    // this warp's columns of PQ: its edges x rows 0..PQ_EA + 2
-    for (int j = lane; j < TC_EPW * (PQ_EA + 3); j += 32) {
-      const int te = warp * TC_EPW + j / (PQ_EA + 3), row = j % (PQ_EA + 3), r = sROW[te];
+  }
+
+  // this warp's columns of PQ, rows 0..ROWS-1: the one-hot dst rows, then
+  // (ROWS > PQ_RAD) the rounded radial and edge attributes
+  template <int ROWS>
+  __device__ __forceinline__ void stage_pq() {
+    for (int j = lane; j < TC_EPW * ROWS; j += 32) {
+      const int te = warp * TC_EPW + j / ROWS, row = j % ROWS, r = sROW[te];
       float v;
       if (row < PQ_RAD) v = row == r ? 1.f : 0.f;
       else if (r < 0) v = 0.f;
@@ -712,84 +741,264 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
       else v = sEA[4 * te + row - PQ_EA];
       sPQ[row * LDB + te] = __float2bfloat16_rn(v);  // radial rounded here
     }
+  }
 
-    // ---- z1, a1 of the warp's edges ----
+  // z1 and a1 = silu(z1) of the warp's edges into sA1 (and z1 into sZ1 with
+  // KEEP_Z1); zeros past the last edge
+  template <bool KEEP_Z1>
+  __device__ __forceinline__ void z1_pass(bf16* sZ1) {
+    const float2 w1r = load_f2(sLW + LW_W1R * H + k0);
+    float2 w1e[FE_MAX];
+#pragma unroll
+    for (int f = 0; f < FE_MAX; ++f) w1e[f] = load_f2(sLW + (LW_W1E + f) * H + k0);
+#pragma unroll
+    for (int i = 0; i < TC_EPW; ++i) {
+      const int te = warp * TC_EPW + i, r = sROW[te];
+      float2 z1 = make_float2(0.f, 0.f), a1 = z1;
+      if (r >= 0) {
+        const float2 u = load_bf2(sUS + te * LDB + k0);
+        const float2 udr = load2(ud, (long)(r0 + r) * H + k0);
+        const float radial = sDIFF[4 * te + 3];
+        float2 eterm = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int f = 0; f < FE_MAX; ++f) {
+          eterm.x += sEA[4 * te + f] * w1e[f].x;
+          eterm.y += sEA[4 * te + f] * w1e[f].y;
+        }
+        z1 = rnd2(make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
+                              (udr.y + u.y) + radial * w1r.y + eterm.y));
+        const float2 s1 = rnd2(sigmoid2(z1));
+        a1 = rnd2(make_float2(z1.x * s1.x, z1.y * s1.y));
+      }
+      if constexpr (KEEP_Z1) store_bf2(sZ1 + te * LDB + k0, z1);
+      store_bf2(sA1 + te * LDB + k0, a1);
+    }
+  }
+
+  // from sS = a1 W2: z2 = sS + b2 and m = silu(z2) of the warp's edges into
+  // sM (and z2 into sZ2 with KEEP_Z2); zeros past the last edge
+  template <bool KEEP_Z2>
+  __device__ __forceinline__ void z2_pass(bf16* sZ2) {
+    const float2 b2 = load_f2(sLW + LW_B2 * H + k0);
+#pragma unroll
+    for (int i = 0; i < TC_EPW; ++i) {
+      const int te = warp * TC_EPW + i;
+      float2 z2 = make_float2(0.f, 0.f), m = z2;
+      if (sROW[te] >= 0) {
+        const float2 t = load_f2(sS + te * LDF + k0);
+        z2 = rnd2(make_float2(t.x + b2.x, t.y + b2.y));
+        const float2 s2 = rnd2(sigmoid2(z2));
+        m = rnd2(make_float2(z2.x * s2.x, z2.y * s2.y));
+      }
+      if constexpr (KEEP_Z2) store_bf2(sZ2 + te * LDB + k0, z2);
+      store_bf2(sM + te * LDB + k0, m);
+    }
+  }
+
+  // One tile's chain up to m: scalars, P(Q) columns, z1 / a1, z2 = a1 W2 and
+  // m, with the next tile's src rows fetched; on return sM holds m and every
+  // warp may read it.
+  template <int PQ_N, bool KEEP>
+  __device__ __forceinline__ void chain_to_m(int t0, bf16* sZ1, bf16* sZ2) {
+    stage_scalars(t0);
+    __syncwarp();
+    stage_pq<PQ_N>();
     cp_async_wait_all();
     __syncwarp();
-    {
-      const float2 w1r = load_f2(sLW + LW_W1R * H + k0);
-      float2 w1e[FE_MAX];
-#pragma unroll
-      for (int f = 0; f < FE_MAX; ++f) w1e[f] = load_f2(sLW + (LW_W1E + f) * H + k0);
-#pragma unroll
-      for (int i = 0; i < TC_EPW; ++i) {
-        const int te = warp * TC_EPW + i, r = sROW[te];
-        float2 z1 = make_float2(0.f, 0.f), a1 = z1;
-        if (r >= 0) {
-          const float2 u = load_bf2(sUS + te * LDB + k0);
-          const float2 udr = load2(ud, (long)(r0 + r) * H + k0);
-          const float radial = sDIFF[4 * te + 3];
-          float2 eterm = make_float2(0.f, 0.f);
-#pragma unroll
-          for (int f = 0; f < FE_MAX; ++f) {
-            eterm.x += sEA[4 * te + f] * w1e[f].x;
-            eterm.y += sEA[4 * te + f] * w1e[f].y;
-          }
-          z1 = rnd2<true>(make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
-                                      (udr.y + u.y) + radial * w1r.y + eterm.y));
-          const float2 s1 = rnd2<true>(sigmoid2(z1));
-          a1 = rnd2<true>(make_float2(z1.x * s1.x, z1.y * s1.y));
-        }
-        store_bf2(sZ1 + te * LDB + k0, z1);
-        store_bf2(sA1 + te * LDB + k0, a1);
-      }
-    }
+    z1_pass<KEEP>(sZ1);
     __syncthreads();
-
-    // ---- z2 = a1 W2 + b2, m = silu(z2); the next tile's src rows ----
     tile_product<false>(sA1, sW2, sS, warp);
     __syncthreads();
-    {
-      const float2 b2 = load_f2(sLW + LW_B2 * H + k0);
-#pragma unroll
-      for (int i = 0; i < TC_EPW; ++i) {
-        const int te = warp * TC_EPW + i;
-        float2 z2 = make_float2(0.f, 0.f), m = z2;
-        if (sROW[te] >= 0) {
-          const float2 t = load_f2(sS + te * LDF + k0);
-          z2 = rnd2<true>(make_float2(t.x + b2.x, t.y + b2.y));
-          const float2 s2 = rnd2<true>(sigmoid2(z2));
-          m = rnd2<true>(make_float2(z2.x * s2.x, z2.y * s2.y));
-        }
-        store_bf2(sZ2 + te * LDB + k0, z2);
-        store_bf2(sM + te * LDB + k0, m);
-      }
-    }
+    z2_pass<KEEP>(sZ2);
     if (t0 + TC_TE < e1) fetch_rows(t0 + TC_TE);
     __syncthreads();
+  }
+};
 
-    // ---- zg = m Wg1 + bg1, gate, and d_zg ----
-    tile_product<false>(sM, sWg1, sS, warp);
+// Point a TileWalk at its inputs and the block's rows.
+__device__ __forceinline__ void walk_inputs(TileWalk& w, const bf16* ud, const bf16* us,
+                                            const float* x, const int* src, const float* ea,
+                                            int fe, int r0, int nr, int e1) {
+  w.ud = ud;
+  w.us = us;
+  w.x = x;
+  w.src = src;
+  w.ea = ea;
+  w.fe = fe;
+  w.r0 = r0;
+  w.nr = nr;
+  w.e1 = e1;
+  w.lane = threadIdx.x & 31;
+  w.warp = threadIdx.x >> 5;
+  w.k0 = 2 * w.lane;
+}
+
+__global__ void __launch_bounds__(THREADS, FWD_BLOCKS)
+edge_fwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
+                   const float* __restrict__ x, const int* __restrict__ rowptr,
+                   const int* __restrict__ src, const float* __restrict__ ea, int fe,
+                   const float* __restrict__ wpack, float* __restrict__ msum,
+                   float* __restrict__ tsum, int n) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * TC_ROWS;
+  const int nr = min(n - r0, TC_ROWS);
+  const int e0 = rowptr[r0], e1 = rowptr[r0 + nr];
+  if (e0 >= e1) {  // block-uniform: no edges, so the block's sums are zeros
+    for (int i = tid; i < nr * H; i += THREADS) msum[(long)r0 * H + i] = 0.f;
+    if (tid < nr * 3) tsum[3 * r0 + tid] = 0.f;
+    return;
+  }
+  TileWalk w;
+  w.sW2 = reinterpret_cast<bf16*>(tc_smem);
+  w.sWg1 = w.sW2 + TC_TILE;
+  w.sA1 = w.sWg1 + TC_TILE;
+  w.sM = w.sA1 + TC_TILE;
+  w.sUS = w.sM + TC_TILE;
+  w.sPQ = w.sUS + TC_TILE;   // P: [PQ_RAD][LDB] one-hot dst rows
+  w.sS = reinterpret_cast<float*>(w.sPQ + PQ_RAD * LDB);
+  w.sLW = w.sS + TC_TE * LDF;
+  w.sXD = w.sLW + LW_ROWS * H;
+  w.sDIFF = w.sXD + TC_ROWS * 4;
+  w.sEA = w.sDIFF + TC_TE * 4;
+  float* sTS = w.sEA + TC_TE * 4;   // [WARPS][TC_ROWS][4] per-warp t_sum rows
+  w.sSRC = reinterpret_cast<int*>(sTS + WARPS * TC_ROWS * 4);
+  w.sROW = w.sSRC + TC_TE;
+  w.sRP = w.sROW + TC_TE;
+  walk_inputs(w, ud, us, x, src, ea, fe, r0, nr, e1);
+  const int warp = w.warp, lane = w.lane, k0 = w.k0;
+
+  w.setup(wpack, rowptr, e0);
+  for (int i = tid; i < WARPS * TC_ROWS * 4; i += THREADS) sTS[i] = 0.f;
+  // m_sum rows: this warp's 16 x 16 tile (0, warp % 4) of P @ m, over edges
+  // 32 (warp / 4) .. + 32 of each tile; the two halves are added at the end
+  FragC gM;
+  wmma::fill_fragment(gM, 0.f);
+  w.fetch_rows(e0);
+  __syncthreads();
+
+  for (int t0 = e0; t0 < e1; t0 += TC_TE) {
+    w.chain_to_m<PQ_RAD, false>(t0, nullptr, nullptr);
+
+    // ---- zg = m Wg1 + bg1 and the gate; (x_d - x_s) gate into this warp's
+    // t_sum rows; m_sum rows += P @ m ----
+    tile_product<false>(w.sM, w.sWg1, w.sS, warp);
     __syncthreads();
     {
-      const float2 bg1 = load_f2(sLW + LW_BG1 * H + k0);
-      const float2 wg2 = load_f2(sLW + LW_WG2 * H + k0);
+      const float2 bg1 = load_f2(w.sLW + LW_BG1 * H + k0);
+      const float2 wg2 = load_f2(w.sLW + LW_WG2 * H + k0);
 #pragma unroll
       for (int i = 0; i < TC_EPW; ++i) {
-        const int te = warp * TC_EPW + i, r = sROW[te];
+        const int te = warp * TC_EPW + i, r = w.sROW[te];
+        if (r >= 0) {
+          float2 zg, sg, g1;
+          const float gate = gate_of(load_f2(w.sS + te * LDF + k0), bg1, wg2, zg, sg, g1);
+          if (lane < 3) sTS[(warp * TC_ROWS + r) * 4 + lane] += w.sDIFF[4 * te + lane] * gate;
+        }
+      }
+    }
+    rows_product<TC_TE / 32>(w.sPQ, w.sM, gM, 0, warp & 3, (TC_TE / 32) * (warp >> 2));
+    __syncthreads();
+  }
+
+  // ---- the block's m_sum and t_sum rows, each stored once ----
+  float* sOut = w.sS;  // [2][PQ_RAD][LDF]: P @ m over the two halves of the edges
+  wmma::store_matrix_sync(sOut + (warp >> 2) * PQ_RAD * LDF + 16 * (warp & 3), gM, LDF,
+                          wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < nr * H; i += THREADS) {
+    const int r = i / H, k = i % H;
+    msum[(long)r0 * H + i] = sOut[r * LDF + k] + sOut[(PQ_RAD + r) * LDF + k];
+  }
+  if (tid < nr * 3) {
+    const int r = tid / 3, c = tid % 3;
+    float acc = 0.f;
+    for (int v = 0; v < WARPS; ++v) acc += sTS[(v * TC_ROWS + r) * 4 + c];
+    tsum[3 * r0 + tid] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
+                   const float* __restrict__ x, const int* __restrict__ rowptr,
+                   const int* __restrict__ src, const float* __restrict__ ea, int fe,
+                   const float* __restrict__ wpack, const float* __restrict__ dms,
+                   const float* __restrict__ dts, float* __restrict__ dud,
+                   float* __restrict__ dus, float* __restrict__ dxd,
+                   float* __restrict__ dxs, float* __restrict__ dw, int n) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * TC_ROWS;
+  const int nr = min(n - r0, TC_ROWS);
+  const int e0 = rowptr[r0], e1 = rowptr[r0 + nr];
+  if (e0 >= e1) return;  // block-uniform: rows without edges keep their zeros
+
+  TileWalk w;
+  w.sW2 = reinterpret_cast<bf16*>(tc_smem);
+  w.sWg1 = w.sW2 + TC_TILE;
+  bf16* sZ1 = w.sWg1 + TC_TILE;   // z1 per edge, then d_z1 (rounded)
+  w.sA1 = sZ1 + TC_TILE;
+  bf16* sZ2 = w.sA1 + TC_TILE;    // z2
+  w.sM = sZ2 + TC_TILE;
+  bf16* sDZG = w.sM + TC_TILE;    // d_zg (rounded)
+  bf16* sDZ2 = sDZG + TC_TILE;    // d_z2 (rounded)
+  w.sUS = sDZ2 + TC_TILE;
+  w.sPQ = w.sUS + TC_TILE;        // [PQ_ROWS][LDB]
+  w.sS = reinterpret_cast<float*>(w.sPQ + PQ_ROWS * LDB);
+  w.sLW = w.sS + TC_TE * LDF;
+  w.sXD = w.sLW + LW_ROWS * H;
+  float* sDT = w.sXD + TC_ROWS * 4;       // [TC_ROWS][4] d t_sum
+  w.sDIFF = sDT + TC_ROWS * 4;
+  w.sEA = w.sDIFF + TC_TE * 4;
+  float* sDD = w.sEA + TC_TE * 4;         // [TC_TE][4] d(x_d - x_s)
+  float* sDXD = sDD + TC_TE * 4;          // [WARPS][TC_ROWS][4] dx_dst sums
+  w.sSRC = reinterpret_cast<int*>(sDXD + WARPS * TC_ROWS * 4);
+  w.sROW = w.sSRC + TC_TE;
+  w.sRP = w.sROW + TC_TE;
+  walk_inputs(w, ud, us, x, src, ea, fe, r0, nr, e1);
+  const int warp = w.warp, lane = w.lane, k0 = w.k0;
+
+  w.setup(wpack, rowptr, e0);
+  for (int i = tid; i < PQ_ROWS * LDB; i += THREADS) w.sPQ[i] = __float2bfloat16_rn(0.f);
+  if (tid < TC_ROWS * 4) {
+    const int r = tid >> 2, c = tid & 3;
+    sDT[tid] = r < nr && c < 3 ? dts[3 * (r0 + r) + c] : 0.f;
+  }
+  for (int i = tid; i < WARPS * TC_ROWS * 4; i += THREADS) sDXD[i] = 0.f;
+
+  float2 g_b2 = make_float2(0.f, 0.f), g_bg1 = g_b2, g_wg2 = g_b2;
+  FragC gW2[2], gWg1[2], gPQ;  // dW2, dWg1, PQ @ d_z1 tiles of this warp, across tiles
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    wmma::fill_fragment(gW2[u], 0.f);
+    wmma::fill_fragment(gWg1[u], 0.f);
+  }
+  wmma::fill_fragment(gPQ, 0.f);
+  w.fetch_rows(e0);
+  __syncthreads();
+
+  for (int t0 = e0; t0 < e1; t0 += TC_TE) {
+    w.chain_to_m<PQ_EA + 3, true>(t0, sZ1, sZ2);
+
+    // ---- zg = m Wg1 + bg1, gate, and d_zg ----
+    tile_product<false>(w.sM, w.sWg1, w.sS, warp);
+    __syncthreads();
+    {
+      const float2 bg1 = load_f2(w.sLW + LW_BG1 * H + k0);
+      const float2 wg2 = load_f2(w.sLW + LW_WG2 * H + k0);
+#pragma unroll
+      for (int i = 0; i < TC_EPW; ++i) {
+        const int te = warp * TC_EPW + i, r = w.sROW[te];
         float2 dzgc = make_float2(0.f, 0.f);
         if (r >= 0) {
-          const float2 t = load_f2(sS + te * LDF + k0);
-          const float2 zg = rnd2<true>(make_float2(t.x + bg1.x, t.y + bg1.y));
-          const float2 sg = rnd2<true>(sigmoid2(zg));
-          const float2 g1 = rnd2<true>(make_float2(zg.x * sg.x, zg.y * sg.y));
-          const float gate = warp_sum(g1.x * wg2.x + g1.y * wg2.y);
+          float2 zg, sg, g1;
+          const float gate = gate_of(load_f2(w.sS + te * LDF + k0), bg1, wg2, zg, sg, g1);
           const float* dt = sDT + 4 * r;
-          const float* df = sDIFF + 4 * te;
+          const float* df = w.sDIFF + 4 * te;
           const float d_gate = df[0] * dt[0] + df[1] * dt[1] + df[2] * dt[2];
           const float2 dzg = make_float2(d_gate * wg2.x * dsilu(zg.x, sg.x),
                                          d_gate * wg2.y * dsilu(zg.y, sg.y));
-          dzgc = rnd2<true>(dzg);
+          dzgc = rnd2(dzg);
           if (lane < 3) sDD[4 * te + lane] = dt[lane] * gate;
           g_bg1.x += dzg.x;
           g_bg1.y += dzg.y;
@@ -802,20 +1011,20 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
     __syncthreads();
 
     // ---- d_z2 = (dm + d_zg Wg1^T) dsilu(z2) ----
-    tile_product<true>(sDZG, sWg1, sS, warp);
+    tile_product<true>(sDZG, w.sWg1, w.sS, warp);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TC_EPW; ++i) {
-      const int te = warp * TC_EPW + i, r = sROW[te];
+      const int te = warp * TC_EPW + i, r = w.sROW[te];
       float2 dz2c = make_float2(0.f, 0.f);
       if (r >= 0) {
-        const float2 t = load_f2(sS + te * LDF + k0);
+        const float2 t = load_f2(w.sS + te * LDF + k0);
         const float2 dm = load_f2(dms + (long)(r0 + r) * H + k0);
         const float2 z2 = load_bf2(sZ2 + te * LDB + k0);
-        const float2 s2 = rnd2<true>(sigmoid2(z2));
+        const float2 s2 = rnd2(sigmoid2(z2));
         const float2 dz2 = make_float2((dm.x + t.x) * dsilu(z2.x, s2.x),
                                        (dm.y + t.y) * dsilu(z2.y, s2.y));
-        dz2c = rnd2<true>(dz2);
+        dz2c = rnd2(dz2);
         g_b2.x += dz2.x;
         g_b2.y += dz2.y;
       }
@@ -824,26 +1033,26 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
     __syncthreads();
 
     // ---- d_a1 = d_z2 W2^T, d_z1 ----
-    tile_product<true>(sDZ2, sW2, sS, warp);
+    tile_product<true>(sDZ2, w.sW2, w.sS, warp);
     __syncthreads();
     {
-      const float2 w1r = load_f2(sLW + LW_W1R * H + k0);
+      const float2 w1r = load_f2(w.sLW + LW_W1R * H + k0);
 #pragma unroll
       for (int i = 0; i < TC_EPW; ++i) {
-        const int te = warp * TC_EPW + i, r = sROW[te];
+        const int te = warp * TC_EPW + i, r = w.sROW[te];
         float2 dz1c = make_float2(0.f, 0.f);
         if (r >= 0) {
-          const float2 t = load_f2(sS + te * LDF + k0);
+          const float2 t = load_f2(w.sS + te * LDF + k0);
           const float2 z1 = load_bf2(sZ1 + te * LDB + k0);
-          const float2 s1 = rnd2<true>(sigmoid2(z1));
+          const float2 s1 = rnd2(sigmoid2(z1));
           const float2 dz1 = make_float2(t.x * dsilu(z1.x, s1.x), t.y * dsilu(z1.y, s1.y));
-          dz1c = rnd2<true>(dz1);
+          dz1c = rnd2(dz1);
           const float d_radial = warp_sum(dz1.x * w1r.x + dz1.y * w1r.y);
-          const int s = sSRC[te];
+          const int s = w.sSRC[te];
           // src role: atomics; dst role: this warp's own per-row sums
           atomicAdd(reinterpret_cast<float2*>(dus + (long)s * H + k0), dz1c);
           if (lane < 3) {
-            const float dd = sDD[4 * te + lane] + 2.f * sDIFF[4 * te + lane] * d_radial;
+            const float dd = sDD[4 * te + lane] + 2.f * w.sDIFF[4 * te + lane] * d_radial;
             atomicAdd(dxs + 3 * s + lane, dd);
             sDXD[(warp * TC_ROWS + r) * 4 + lane] += dd;
           }
@@ -855,19 +1064,9 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
 
     // ---- over the whole tile: dW2 += a1^T d_z2, dWg1 += m^T d_zg, and the
     // dUd rows and dW1 radial / edge-attr rows += PQ @ d_z1 ----
-    grad_product(sA1, sDZ2, gW2, warp);
-    grad_product(sM, sDZG, gWg1, warp);
-    {
-      const int fi = warp >> 2, fk = warp & 3;
-#pragma unroll
-      for (int kk = 0; kk < TC_TE / 16; ++kk) {
-        FragA a;
-        wmma::load_matrix_sync(a, sPQ + 16 * fi * LDB + 16 * kk, LDB);
-        FragB b;
-        wmma::load_matrix_sync(b, sZ1 + 16 * kk * LDB + 16 * fk, LDB);
-        wmma::mma_sync(gPQ, a, b, gPQ);
-      }
-    }
+    grad_product(w.sA1, sDZ2, gW2, warp);
+    grad_product(w.sM, sDZG, gWg1, warp);
+    rows_product<TC_TE / 16>(w.sPQ, sZ1, gPQ, warp >> 2, warp & 3, 0);
     __syncthreads();
   }
 
@@ -882,7 +1081,7 @@ edge_bwd_tc_kernel(const bf16* __restrict__ ud, const bf16* __restrict__ us,
   if (tid < nr * 3) {
     const int r = tid / 3, c = tid % 3;
     float acc = 0.f;
-    for (int w = 0; w < WARPS; ++w) acc += sDXD[(w * TC_ROWS + r) * 4 + c];
+    for (int v = 0; v < WARPS; ++v) acc += sDXD[(v * TC_ROWS + r) * 4 + c];
     dxd[3 * r0 + tid] = acc;
   }
   if (tid < H) {
@@ -920,14 +1119,20 @@ extern "C" int fastegnn_edge_fwd(int bf16, const void* ud, const void* us,
                                  float* msum, float* tsum, int n, void* stream) {
   if (fe < 0 || fe > FE_MAX || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const dim3 grid((n + WARPS - 1) / WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    edge_fwd_kernel<__nv_bfloat16, true><<<grid, THREADS, 0, st>>>(
+  if (bf16) {  // tensor cores
+    cudaError_t err = cudaFuncSetAttribute(
+        edge_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(edge_fwd_tc_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    edge_fwd_tc_kernel<<<dim3((n + TC_ROWS - 1) / TC_ROWS), THREADS, FWD_SMEM, st>>>(
         static_cast<const __nv_bfloat16*>(ud), static_cast<const __nv_bfloat16*>(us), x,
         rowptr, src, ea, fe, wpack, msum, tsum, n);
   } else {
-    edge_fwd_kernel<float, false><<<grid, THREADS, 0, st>>>(
+    edge_fwd_kernel<<<dim3((n + WARPS - 1) / WARPS), THREADS, 0, st>>>(
         static_cast<const float*>(ud), static_cast<const float*>(us), x, rowptr, src, ea,
         fe, wpack, msum, tsum, n);
   }

@@ -13,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
@@ -76,6 +77,31 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def resource_lines(report: str) -> List[str]:
+    """The register, shared-memory and spill lines of a ptxas report, each
+    prefixed with the kernel it describes."""
+    kernel, lines = "?", []
+    for line in report.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if m:
+            kernel = _unmangled(m.group(1))
+        elif "registers" in line or "spill" in line:
+            lines.append(f"{kernel}: {line.replace('ptxas info    : ', '').strip()}")
+    return lines
+
+
+def _unmangled(name: str) -> str:
+    """The function's own name in an Itanium-mangled ``_Z[N]<len><id>...``."""
+    pos = 3 if name.startswith("_ZN") else 2
+    last = name
+    while pos < len(name) and name[pos].isdigit():
+        digits = re.match(r"\d+", name[pos:]).group(0)
+        pos += len(digits)
+        last = name[pos:pos + int(digits)]
+        pos += int(digits)
+    return last
 
 
 def load(name: str) -> ctypes.CDLL:

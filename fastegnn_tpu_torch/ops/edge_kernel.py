@@ -16,10 +16,11 @@ The first linear is folded into node tables built outside the kernels with
 ``torch.matmul``: ``Ud = h W1[0:64] + b1`` and ``Us = h W1[64:128]``.  The
 kernels (``csrc/edge_block.cu``; design and bound in its header) walk the
 dst CSR ``rowptr`` / ``src`` of the whole batch in one launch each and run
-the two 64x64 chain products in their bodies; the bf16 backward runs its
-products on the tensor cores.  The backward returns the per-node sums
-``dUd`` / ``dUs`` and the epilogue turns them into ``dh``, ``dW1`` and
-``db1`` with three matmuls, as the JAX op does.
+the two 64x64 chain products in their bodies; in bf16 the forward and the
+backward run their products on the tensor cores, from shared stage code, so
+the backward recomputes the forward's chain bit for bit.  The backward
+returns the per-node sums ``dUd`` / ``dUs`` and the epilogue turns them
+into ``dh``, ``dW1`` and ``db1`` with three matmuls, as the JAX op does.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``
@@ -164,7 +165,7 @@ def chain_bwd(ud, us, x, dst, src, ea, wpack, dm, dt, bf16: bool):
     operands of the six 64x64 products (``a1``, ``m``, ``d_zg_c``,
     ``d_z2_c`` and the W2 / Wg1 pack rows) and of the dUd / dW1 sums
     (``d_z1_c``, ``ea_r`` and the rounded radial) are bf16 values, which the
-    tensor-core kernel relies on."""
+    tensor-core kernels rely on."""
     r = lambda t: _rnd(t, bf16)  # noqa: E731
     c = _chain(ud, us, x, dst, src, ea, wpack, bf16)
     w2, wg1 = wpack[ROW_W2:ROW_W2 + H], wpack[ROW_WG1:ROW_WG1 + H]

@@ -104,15 +104,15 @@ def _ragged_csr(rng, n, long_row, long_deg, empty):
     return deg, np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("fe", [0, 1, 3])
-def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
-    # both blockings: the f32 kernel's 16-row blocks of 32-edge tiles and
-    # the bf16 kernel's 4-row blocks of 64-edge tiles.  A hub row of 150
-    # edges spans several tiles of either; rows 16..31 (a whole block of
-    # either) and a few more have no edges; blocks end in a partly empty
-    # tile; the last bf16 block has 2 rows; a padded tail past rowptr[N]
-    # must not be read
+def _ragged_edge_block_inputs(cuda, bf16, fe):
+    """Inputs of the edge kernels at the edges of both blockings: the f32
+    backward's 16-row blocks of 32-edge tiles and the bf16 kernels' 4-row
+    blocks of 64-edge tiles.  A hub row of 150 edges spans several tiles of
+    either and shares its last tile with the next rows; rows 16..31 (a whole
+    block of either) and a few more have no edges; blocks end in a partly
+    empty tile; the last bf16 block has 2 rows; a padded tail past rowptr[N]
+    (edge attributes 9) must not be read.  Returns the generator for more
+    draws and ``(ud, us, x, rowptr, src, dst, ea, wpack)``."""
     rng = np.random.default_rng(fe)
     n, pad = 70, 9
     deg, rowptr = _ragged_csr(rng, n, 5, 150, [*range(16, 32), 40, 41, 69])
@@ -131,9 +131,17 @@ def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
     h = t(rng.normal(size=(n, H)).astype(np.float32))
     ud, us = ek.build_tables(h, W1, b1, bf16)
     wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, bf16)
-    dms = ek._rnd(t(rng.normal(size=(n, H)).astype(np.float32)), bf16)
-    dts = ek._rnd(t(rng.normal(size=(n, 3)).astype(np.float32)), bf16)
-    args = (ud, us, x, t(rowptr), t(src), t(dst), t(ea), wpack, dms, dts, bf16)
+    return rng, (ud, us, x, t(rowptr), t(src), t(dst), t(ea), wpack)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fe", [0, 1, 3])
+def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
+    rng, (ud, us, x, rowptr, src, dst, ea, wpack) = _ragged_edge_block_inputs(cuda, bf16, fe)
+    n = x.shape[0]
+    dms = ek._rnd(torch.tensor(rng.normal(size=(n, H)).astype(np.float32), device=cuda), bf16)
+    dts = ek._rnd(torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda), bf16)
+    args = (ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)
     before = ek.BWD_LAUNCHES
     got = ek.edge_block_bwd(*args)
     torch.cuda.synchronize()
@@ -143,6 +151,28 @@ def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
         assert bool(torch.isfinite(a).all()), name
         assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max(), name
     assert (got[0][16:32] == 0).all() and (got[0][[40, 41, 69]] == 0).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fe", [0, 1, 3])
+def test_edge_block_fwd_at_tile_boundaries(cuda, bf16, fe):
+    # the geometry above; the forward's outputs come from torch.empty, so
+    # every row, empty or not, must be written by the kernel; no atomics, so
+    # two calls agree bit for bit
+    _, (ud, us, x, rowptr, src, _, ea, wpack) = _ragged_edge_block_inputs(cuda, bf16, fe)
+    args = (ud, us, x, rowptr, src, ea, wpack, bf16)
+    before = ek.FWD_LAUNCHES
+    got = ek.edge_block_fwd(*args)
+    again = ek.edge_block_fwd(*args)
+    torch.cuda.synchronize()
+    assert ek.FWD_LAUNCHES == before + 2
+    want = ek.edge_block_fwd_plain(*args)
+    empty = [*range(16, 32), 40, 41, 69]
+    for name, a, b, c in zip(("m_sum", "t_sum"), got, want, again):
+        assert bool(torch.isfinite(a).all()), name
+        assert (a - b).abs().max() <= (2e-2 if bf16 else 1e-5) * b.abs().max(), name
+        assert (a[empty] == 0).all(), name
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("form", ["dst", "src"])
