@@ -25,19 +25,36 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    torch.profiler window over 3 more steps;
 5. the variant path: the same configuration with ``attention=True`` in f32
    (the CLI's ``--attention_required`` off the TPU), whose edge block takes
-   the CSR branch and its segment-sum kernel, run and read the same way.
+   the CSR branch and its segment-sum kernel, run and read the same way;
+6. the CLI path: ``cli.common.run_training`` with the Water-3D CLI's
+   defaults (f32, so the f32 edge kernels; batch 20; ``--virtual_channel 3
+   --cutoff_rate 0.5``, and ``--radius 0.075`` for Water-3D's mean degree),
+   3 epochs on the synthetic Water-3D trajectories (3 per split, 8000
+   particles, built in memory: a GPU machine need not have h5py), with
+   exact launch counts, per-epoch telemetry, and a resume from the best
+   checkpoint that restores it tensor for tensor and trains one more epoch
+   under the profiler (the epoch's busy share); then a profiler window over
+   its train step, and the f32 edge kernels against their plain versions
+   on that step's 20-graph batch;
+7. the rollout: ``train.rollout.make_rollout`` over 5 steps on one test
+   graph of the trained model, 4 forward launches per step; then the f32
+   edge kernels against their plain versions on that graph.
 
-Output: one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+Output: one JSON line ``{"kernels": [...]}`` (each edge kernel with its
+main-path and CLI-path launches, and its f32 check on the CLI batch and
+the rollout graph), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
@@ -48,6 +65,13 @@ WARMUP, TIMED = 3, 20
 KERNEL_RUNS, KERNEL_INNER = 7, 10   # median over runs of back-to-back launches
 SEGSUM_F = HIDDEN + 3   # the variant path sums [m_e | trans] and grads of [h | x]
 SEGSUM_TOL = 1e-5       # both versions sum in f32, possibly in another order
+# the CLI path: trajectories per split, frames per trajectory, epochs
+CLI_TRAJ, CLI_FRAMES, CLI_EPOCHS, ROLL_STEPS = 3, 300, 3, 5
+# the synthetic particles fill their box more thinly than Water-3D's: at
+# the CLI's default radius (0.035) they have ~6 real edges per node after
+# the 0.5 cutoff; at 0.075, ~60, Water-3D's mean degree that the main
+# path's graph has too ([cli] prints the count)
+CLI_RADIUS = 0.075
 # the port's kernels, which [profile] lists wherever they rank
 OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
@@ -102,8 +126,10 @@ def bound(kind: str, bf16: bool, n: int, e: int, fe: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(g, gen):
-    """Phase 2: each kernel against its plain version at the main path's shapes."""
+def kernel_phase(g, gen, modes=(False, True), tag="kernel"):
+    """Each edge-block kernel against its plain version on the graph ``g``
+    (phase 2: the main path's graph, f32 and bf16; the CLI path's batch and
+    the rollout's graph, f32), with random tables and weights."""
     import torch
 
     from fastegnn_tpu_torch.ops import edge_kernel as ek
@@ -119,7 +145,7 @@ def kernel_phase(g, gen):
     dms0 = torch.randn(n, H, generator=gen).to(dev)
     dts0 = torch.randn(n, 3, generator=gen).to(dev)
     results = {}
-    for bf16 in (False, True):
+    for bf16 in modes:
         ud, us = ek.build_tables(h, W1, b1, bf16)
         wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, bf16)
         dms, dts = ek._rnd(dms0, bf16).contiguous(), ek._rnd(dts0, bf16).contiguous()
@@ -143,14 +169,16 @@ def kernel_phase(g, gen):
             plain_ms = median_ms(lambda: plain(*args))
             b_ms, b_by = bound(kind, bf16, n, e, fe)
             mode = "bf16" if bf16 else "f32"
-            print(f"[kernel] edge_block_{kind} {mode}: max_abs_err {abs_err:.3e} "
+            print(f"[{tag}] edge_block_{kind} {mode}: max_abs_err {abs_err:.3e} "
                   f"max_rel_err {rel_err:.3e} (tol {TOL[(kind, bf16)]:g}) | kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
             check(rel_err <= TOL[(kind, bf16)],
-                  f"edge_block_{kind} {mode}: kernel and plain disagree ({rel_err:.3e})")
+                  f"{tag} edge_block_{kind} {mode}: kernel and plain disagree ({rel_err:.3e})")
             results[(kind, mode)] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            del got, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -338,6 +366,18 @@ def train_path_phase(g, n_real, tag: str, attention: bool, bf16: bool, per_step:
     return launches, step_ms, rate
 
 
+def device_rows(prof):
+    """``(kernel, device us, count)`` of a profile, longest first: device-side
+    events only; a user annotation (Optimizer.step) spans kernels that are
+    listed on their own, so it is left out."""
+    import torch
+
+    rows = [(ev.key, ev.device_time_total, ev.count) for ev in prof.key_averages()
+            if ev.device_time_total > 0 and not getattr(ev, "is_user_annotation", False)
+            and ev.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_window(step, g, tag: str, n_steps: int = 3) -> None:
     """Device time by kernel over a few steps (torch.profiler)."""
     import torch
@@ -350,15 +390,10 @@ def profile_window(step, g, tag: str, n_steps: int = 3) -> None:
             step(g)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only; a user annotation (Optimizer.step) spans
-    # kernels that are listed on their own, so it is left out of the sum
-    rows = [(ev.key, ev.device_time_total, ev.count) for ev in prof.key_averages()
-            if ev.device_time_total > 0 and not getattr(ev, "is_user_annotation", False)
-            and ev.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof)
     if not rows:
         print(f"[profile] {tag}: no device time in the trace: not measured", flush=True)
         return
-    rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"[profile] {tag}, {n_steps} steps: wall {wall_us / 1e3:.3f} ms, device kernel time "
           f"{busy / 1e3:.3f} ms (busy share {busy / wall_us:.3f}, profiler on)", flush=True)
@@ -367,6 +402,170 @@ def profile_window(step, g, tag: str, n_steps: int = 3) -> None:
         if i < 12 or any(k in key for k in OWN_KERNELS):
             print(f"[profile]   {t / n_steps / 1e3:9.4f} ms/step  x{cnt // n_steps:<4d} "
                   f"{key[:90]}", flush=True)
+
+
+def cli_datasets():
+    """The synthetic Water-3D splits of the CLI path, on the card."""
+    import numpy as np
+
+    from fastegnn_tpu_torch.data.simulation import SimulationDataset, synthetic_trajectories
+
+    t0 = time.perf_counter()
+    trajectories = synthetic_trajectories(CLI_TRAJ, N_NODES, CLI_FRAMES, seed=43)
+    t1 = time.perf_counter()
+    sets = [SimulationDataset.from_trajectories(trajectories[s], s, device="cuda",
+                                                virtual_channels=CHANNELS, cutoff_rate=0.5,
+                                                radius=CLI_RADIUS, seed=43)
+            for s in ("train", "valid", "test")]
+    per_node = [np.array([gr["n_edges"] / gr["n_nodes"] for gr in d.graphs]) for d in sets]
+    print(f"[cli] datasets: trajectories {t1 - t0:.2f} s, samples {time.perf_counter() - t1:.2f} "
+          f"s; sizes {[len(d) for d in sets]}, nodes {sets[0].spec.max_nodes}, radius "
+          f"{CLI_RADIUS}, real edges per node mean / min / max "
+          f"{[f'{a.mean():.1f} / {a.min():.1f} / {a.max():.1f}' for a in per_node]}, edges per "
+          f"graph (max) {[d.spec.max_edges for d in sets]}", flush=True)
+    return sets
+
+
+def cli_args(tmp: str, *more: str):
+    from fastegnn_tpu_torch.cli.simulation import build_parser
+
+    return build_parser().parse_args([
+        "--data_directory", tmp, "--virtual_channel", str(CHANNELS), "--cutoff_rate", "0.5",
+        "--radius", str(CLI_RADIUS),
+        "--seed", "43", "--max_epochs", str(CLI_EPOCHS), "--test_interval", "1",
+        "--ckpt_directory", f"{tmp}/ckpt", "--log_directory", f"{tmp}/logs", *more])
+
+
+def cli_phase(tmp: str):
+    """Phase 6: the Water-3D CLI's training run on the card, resumed from its
+    best checkpoint for one more epoch under the profiler; then the f32
+    edge kernels against their plain versions on one of its batches.
+    Returns ``(launches, kernel results, trained model, test dataset)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastegnn_tpu_torch.cli.common import run_training
+    from fastegnn_tpu_torch.train.checkpoint import restore_checkpoint
+    from fastegnn_tpu_torch.train.step import make_train_step
+
+    dtr, dva, dte = cli_datasets()
+    args = cli_args(tmp)
+    check(args.batch_size == 20 and args.dim_hidden == HIDDEN and args.num_layer == LAYERS
+          and args.compute_dtype == "float32", "cli: the CLI's defaults changed")
+    n_train = dtr.num_batches(args.batch_size)
+    n_eval = dva.num_batches(args.batch_size) + dte.num_batches(args.batch_size)
+    padded = -(-dtr.spec.max_edges * args.batch_size // 1024) * 1024
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run = run_training(args, dtr, dva, dte, per_graph_sampling=True, gravity=(0.0, -1.0, 0.0))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"edge_block_fwd": LAYERS * CLI_EPOCHS * (n_train + n_eval),
+            "edge_block_bwd": LAYERS * CLI_EPOCHS * n_train, "segment_sum": 0}
+    log = run.log
+    print(f"[cli] {CLI_EPOCHS} epochs of {n_train} train steps and {n_eval} eval batches, "
+          f"batch {args.batch_size} x {dtr.spec.max_nodes} nodes, {padded} padded edges, "
+          f"f32: launches {launches} (expected {want}); losses train {log['loss_train']} "
+          f"test {log['loss']}", flush=True)
+    check(launches == want, "cli: launch counts differ from the path's")
+    check(all(v == v and abs(v) < float("inf") for v in log["loss_train"] + log["loss"]),
+          "cli: non-finite loss")
+    check(run.step == CLI_EPOCHS * n_train, f"cli: {run.step} train steps")
+    logs = glob.glob(f"{tmp}/logs/*_loss_*.json")
+    check(len(logs) == 1, "cli: no JSON log")
+    with open(logs[0]) as f:
+        best, logged = json.load(f)
+    check(logged["loss"] == log["loss"] and best["epoch_index"] >= 1, "cli: bad JSON log")
+    for e, tel in enumerate(log["telemetry"]):
+        coll = dtr.collate_seconds[e * n_train:(e + 1) * n_train]
+        rate = padded * LAYERS / (tel["step_ms_median"] / 1e3) / 1e6
+        print(f"[cli] epoch {tel['epoch']}: wall {tel['seconds']:.3f} s, median step "
+              f"{tel['step_ms_median']:.3f} ms, {rate:.3f} M edge-messages/s, host collate "
+              f"{1e3 * sum(coll) / len(coll):.3f} ms per train batch, peak device memory "
+              f"{tel['peak_device_gib']} GiB", flush=True)
+    ev = dva.collate_seconds + dte.collate_seconds
+    print(f"[cli] eval batches collated once each: {len(ev)}, "
+          f"{1e3 * sum(ev) / len(ev):.3f} ms per batch", flush=True)
+
+    # resume: a run that stops at the checkpoint's epoch holds exactly what
+    # it restored; one more epoch then trains from there
+    ckpt = f"{tmp}/ckpt/best"
+    ck = restore_checkpoint(ckpt, map_location="cuda")
+    held = run_training(cli_args(tmp, "--resume", ckpt, "--max_epochs", str(ck["epoch"])),
+                        dtr, dva, dte, per_graph_sampling=True, gravity=(0.0, -1.0, 0.0))
+    sd = held.model.state_dict()
+    same_model = sd.keys() == ck["model"].keys() and all(
+        torch.equal(sd[k], ck["model"][k]) for k in sd)
+    ost, cst = held.optimizer.state_dict()["state"], ck["optimizer"]["state"]
+    same_adam = ost.keys() == cst.keys() and all(
+        ost[i].keys() == cst[i].keys() and all(torch.equal(ost[i][k], cst[i][k]) for k in ost[i])
+        for i in ost)
+    check(same_model and same_adam and held.step == ck["step"] and not held.log["epochs"],
+          "cli: resume did not restore the checkpoint exactly")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        more = run_training(cli_args(tmp, "--resume", ckpt, "--max_epochs", str(ck["epoch"] + 1)),
+                            dtr, dva, dte, per_graph_sampling=True, gravity=(0.0, -1.0, 0.0))
+        torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    check(more.log["epochs"] == [ck["epoch"] + 1] and more.step == ck["step"] + n_train
+          and all(v == v and abs(v) < float("inf")
+                  for v in more.log["loss_train"] + more.log["loss"]),
+          "cli: the resumed run did not train one more epoch")
+    check(launch_counts() == {"edge_block_fwd": LAYERS * (n_train + n_eval),
+                              "edge_block_bwd": LAYERS * n_train, "segment_sum": 0},
+          f"cli: resumed epoch launches {launch_counts()}")
+    print(f"[cli] resumed from epoch {ck['epoch']} (step {ck['step']}): model and Adam state "
+          f"restored tensor for tensor; epoch {ck['epoch'] + 1} losses train "
+          f"{more.log['loss_train']} test {more.log['loss']}", flush=True)
+    busy_s = sum(r[1] for r in device_rows(prof)) / 1e6
+    epoch_s = more.log["telemetry"][0]["seconds"]
+    # a new run collates its eval batches again (the cache is per run), so
+    # this epoch is a run's first: 2 + 4 collates
+    print(f"[profile] cli, the resumed epoch ({n_train} train steps, {n_eval} eval batches, "
+          f"all collated in the epoch; profiler on): device kernel time "
+          f"{busy_s * 1e3:.3f} ms, epoch wall {epoch_s * 1e3:.3f} ms (busy share "
+          f"{busy_s / epoch_s:.3f}), whole run {window_s * 1e3:.3f} ms (busy share "
+          f"{busy_s / window_s:.3f})", flush=True)
+
+    step = make_train_step(run.model, run.optimizer, sigma=args.sigma, weight=args.weight,
+                           sample=args.sample, per_graph_sampling=True,
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    g = dtr.collate(list(range(args.batch_size)))
+    print(f"[cli] profiled batch: {g.num_nodes} nodes, {g.n_real_edges} real / {g.num_edges} "
+          f"padded edges", flush=True)
+    profile_window(step, g, "cli")
+    del step
+    torch.cuda.empty_cache()
+    kern = kernel_phase(g, torch.Generator().manual_seed(4), modes=(False,), tag="cli")
+    return launches, kern, run.model, dte
+
+
+def rollout_phase(model, dataset):
+    """Phase 7: a 5-step rollout of the trained model on one test graph;
+    then the f32 forward kernel against its plain version on that graph."""
+    import torch
+
+    from fastegnn_tpu_torch.train.rollout import make_rollout
+
+    g = dataset.collate([0])
+    roll = make_rollout(model, ROLL_STEPS)
+    roll(g)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    traj, v = roll(g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ROLL_STEPS
+    launches = launch_counts()
+    print(f"[rollout] {ROLL_STEPS} steps on a {g.num_nodes}-node test graph, "
+          f"{g.n_real_edges} edges: {ms:.3f} ms per step; launches {launches}", flush=True)
+    want = {"edge_block_fwd": LAYERS * ROLL_STEPS, "edge_block_bwd": 0, "segment_sum": 0}
+    check(launches == want, f"rollout: launches {launches}, expected {want}")
+    check(tuple(traj.shape) == (ROLL_STEPS, g.num_nodes, 3) and bool(torch.isfinite(traj).all())
+          and bool(torch.isfinite(v).all()), "rollout: bad trajectory")
+    return kernel_phase(g, torch.Generator().manual_seed(5), modes=(False,), tag="rollout")
 
 
 def main() -> int:
@@ -409,6 +608,9 @@ def main() -> int:
     var_launches, var_step_ms, var_rate = train_path_phase(
         g, n_real, "variant", attention=True, bf16=False,
         per_step={"edge_block_fwd": 0, "edge_block_bwd": 0, "segment_sum": 3 * LAYERS})
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli_kern, trained, test_set = cli_phase(tmp)
+    roll_kern = rollout_phase(trained, test_set)
 
     entries = []
     for kind, line in (("fwd", 467), ("bwd", 503)):
@@ -420,7 +622,8 @@ def main() -> int:
             "replaces": f"fastegnn_tpu/ops/edge_kernel_v5.py:{line}",
             "tpu": f"ops/edge_kernel_v5.py::_{kind}_kernel",
             "launches": launches[name], "mode": "bf16",
-            **main, "library_ms": None, "f32": f32,
+            **main, "library_ms": None, "f32": f32, "cli_launches": cli_launches[name],
+            "cli_f32": cli_kern[(kind, "f32")], "rollout_f32": roll_kern[(kind, "f32")],
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",
@@ -428,6 +631,7 @@ def main() -> int:
         "replaces": "fastegnn_tpu/ops/spmm.py:87",
         "tpu": "ops/spmm.py::_segment_sum_kernel",
         "launches": var_launches["segment_sum"], "mode": "dst f32",
+        "cli_launches": cli_launches["segment_sum"],
         **seg["dst f32"],
         "forms": {k: v for k, v in seg.items() if k != "dst f32"},
     })

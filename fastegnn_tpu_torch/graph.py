@@ -87,13 +87,21 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.coord.device
 
-    def to(self, device) -> "GraphBatch":
-        """A copy with every tensor on ``device``."""
-        moved = {}
+    def _apply(self, fn) -> "GraphBatch":
+        out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            moved[f.name] = v.to(device) if isinstance(v, torch.Tensor) else v
-        return GraphBatch(**moved)
+            out[f.name] = fn(v) if isinstance(v, torch.Tensor) else v
+        return GraphBatch(**out)
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """A copy with every tensor on ``device``."""
+        return self._apply(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """A copy of a CPU batch in page-locked memory, so that a
+        ``to(cuda, non_blocking=True)`` overlaps the host's work."""
+        return self._apply(torch.Tensor.pin_memory)
 
 
 def morton_order(coord: np.ndarray, bits: int = 10) -> np.ndarray:

@@ -82,6 +82,15 @@ def _gate_head(mlp, z, cd):
     return linear(silu(linear(z, mlp[0], cd)), mlp[2], cd).float()
 
 
+def _node_gate(mlp, h, cd):
+    """The velocity / gravity head: ``Linear, SiLU`` and the last product in
+    ``cd``, then its bias added in f32 after the product, as the JAX package
+    does (``fastegnn_tpu/models/fastegnn_core.py:296-305``)."""
+    last = mlp[2]
+    z = silu(linear(h, mlp[0], cd))
+    return torch.nn.functional.linear(z, last.weight.to(cd)).float() + last.bias.float()
+
+
 def virtual_and_node_update(
     cfg: LayerCfg,
     layer,
@@ -131,9 +140,9 @@ def virtual_and_node_update(
 
     x_new = x + agg_x
     x_new = x_new - (vdiff * gate_xv[..., None]).sum(1) * (1.0 / C)
-    x_new = x_new + _gate_head(layer.coord_mlp_vel, h, cd) * v
+    x_new = x_new + _node_gate(layer.coord_mlp_vel, h, cd) * v
     if cfg.has_gravity:
-        x_new = x_new + _gate_head(layer.gravity_mlp, h, cd) * gravity
+        x_new = x_new + _node_gate(layer.gravity_mlp, h, cd) * gravity
 
     vx_new = vx + pool((vdiff * gate_X[..., None]).reshape(n, 3 * C).to(cd)).reshape(B, C, 3)
     pool_mv = pool(m_v.reshape(n, C * H)).reshape(B, C, H)

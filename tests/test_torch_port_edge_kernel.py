@@ -112,6 +112,44 @@ def test_bf16_mode_close_to_f32_reference():
         assert np.abs(a.grad.numpy() - b).max() < 3e-2 * np.abs(b).max()
 
 
+# bf16 against the JAX bf16 kernel, relative to the largest JAX value.  The
+# two round at different points (the JAX kernel's tanh sigmoid, bf16 _dsilu
+# and hi/lo coordinate pairs; ROADMAP.md queue 3, F2).  Measured over seeds
+# 0-3: m_sum 2.0e-3, t_sum 9.2e-3, the nine gradients 4.8e-3; the
+# tolerances are about twice that.
+BF16_JAX_TOL = dict(m_sum=5e-3, t_sum=2e-2, grad=1e-2)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_bf16_forward_and_gradients_match_jax_bf16(seed):
+    # every node has edges and W = 2, inside reference defects 1-2
+    (h, x, dst, src, ea, w), th, tx, tw, graph = _torch_case(seed)
+    meta = _jax_meta(h, dst, src, ea)
+    rng = np.random.default_rng(1)
+    cot_m = rng.normal(size=(h.shape[0], H)).astype(np.float32)
+    cot_t = rng.normal(size=(h.shape[0], 3)).astype(np.float32)
+
+    def loss_k(h, x, *w):
+        ms, ts = fused_edge_block_v5(h, x, meta, *w, compute_dtype=jnp.bfloat16)
+        return jnp.sum(ms * cot_m) + jnp.sum(ts * cot_t), (ms, ts)
+
+    (_, (ms, ts)), gk = jax.value_and_grad(loss_k, argnums=tuple(range(9)), has_aux=True)(
+        h, x, *w)
+    ins = [a.clone().requires_grad_(True) for a in [th, tx, *tw]]
+    pm, pt = _port(ins[0], ins[1], ins[2:], graph, torch.bfloat16)
+    ((pm * torch.tensor(cot_m)).sum() + (pt * torch.tensor(cot_t)).sum()).backward()
+
+    def rel(a, b):
+        b = np.asarray(b)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert rel(pm.detach().numpy(), ms) <= BF16_JAX_TOL["m_sum"]
+    assert rel(pt.detach().numpy(), ts) <= BF16_JAX_TOL["t_sum"]
+    names = ("h", "x", "W1", "b1", "W2", "b2", "Wg1", "bg1", "wg2")
+    for name, a, b in zip(names, ins, gk):
+        assert rel(a.grad.numpy(), b) <= BF16_JAX_TOL["grad"], name
+
+
 def test_bf16_chain_product_operands_are_bf16_values():
     # the bf16 backward kernel runs the six 64x64 products (and the dUd /
     # dW1 sums) on the tensor cores with bf16 operands; that is exact only
