@@ -66,16 +66,39 @@
 //   Wg1 sit in shared memory; the row's sums stay in registers and are
 //   written once (no atomics, deterministic); one edge per warp at a time,
 //   ~100x above the bound (PERF.md).
-// - backward in f32 (edge_bwd_kernel): one block per range of BWD_ROWS dst
-//   rows, in tiles of TE edges (TE / WARPS per warp).  Phase 1 recomputes the
-//   chain with the forward's chain_fwd, and its backward, per edge, and
-//   stages a1, m, d_zg, d_z2, d_z1 in shared memory; src-role sums (dUs,
-//   dx_src) go out with f32 atomicAdd.  Phase 2 accumulates the dW2 / dWg1
-//   outer products into 4x4 register tiles per thread and the dst-role sums
-//   (dUd, dx_dst) per row, written once by the block that owns the row.
-// Each backward block adds its weight-gradient tiles to dw with one atomic per
-// entry.  The atomics make dUs, dx and dw vary in the last bits from run to
-// run; dUd and the forward are deterministic.
+// - backward in f32 (edge_bwd_kernel) replaces edge_kernel_v5.py::_bwd_kernel
+//   (:503) with its body _chain_bwd (:438).  Its six 64x64 products per edge
+//   (the recompute's a1 W2 and m Wg1, then d_zg Wg1^T, d_z2 W2^T, and the
+//   weight gradients a1^T d_z2, m^T d_zg) set its bound at the FP32 rate, 67
+//   TFLOP/s.  What holds it is shared memory: it delivers 128 bytes of
+//   operands per clock per SM, a broadcast counting once per lane, and the
+//   FP32 rate needs 4 FMAs per float loaded.  One edge per warp, each
+//   product a matvec, gave ~1.6 FMAs per float.  So the block walks its dst
+//   rows' edges in tiles of TE and runs the four chain products as products
+//   of whole tiles (f32_product): each thread keeps RE x RF sums in
+//   registers (6 edges x 2 features) and reads the edge rows as float4s
+//   along k, 12 FMAs for 8 floats (a warp spans 4 edge rows x 8 feature
+//   groups, rows padded to LDT, so no load conflicts).  A product with W^T
+//   reads W's rows along k as the A operand is read, so no transposed copy
+//   is kept.  Between products one warp per edge row runs the elementwise
+//   chain without branches (z1; the gate and d_zg; d_radial and the
+//   src-role atomics; each warp's per-feature weight-gradient sums go to
+//   shared memory once per pass), and the product epilogues apply the rest
+//   in place: dsilu(z2) and dsilu(z1) are stored when the sigmoid is taken
+//   and become d_z2 and d_z1; m Wg1 becomes d_zg.  Three exact logistics per feature per edge, as before.  Phase 2
+//   accumulates dW2 += a1^T d_z2 and dWg1 += m^T d_zg in 4 x BWD_DWC
+//   register tiles, and each thread the dUd sums of one row over that row's
+//   edges in the tile (stored once, no atomics, deterministic); dx_dst goes
+//   to per-warp row sums combined in a fixed order; dUs and dx_src go out
+//   with f32 atomics.  A persistent grid of BWD_BLOCKS blocks per SM takes
+//   ranges of BWD_ROWS rows from a counter, so the SMs stay balanced and
+//   each block adds its weight gradients to dw once, at its end.  ~107 KB of shared memory per block (W2, Wg1 and
+//   five [TE][LDT] tiles) and at most 128 registers: 2 blocks per SM.  Larger
+//   register tiles need more registers or shared memory than 2 blocks of 8
+//   warps have, and fewer warps per SM lost more than they gained
+//   (scripts/torch_kernel_lab.py, PERF.md).
+// The atomics make dUs, dx and dw vary in the last bits from run to run; dUd
+// and the forward are deterministic.
 //
 // Compute modes: f32 (exact f32 arithmetic) and bf16 (tables bf16, weights
 // rounded to bf16, z1 / z2 / zg / sigmoid / silu outputs and the backward's
@@ -103,10 +126,45 @@ constexpr int THREADS = WARPS * 32;
 constexpr int FE_MAX = 3;
 constexpr int ROW_W2 = 0, ROW_WG1 = 64, ROW_W1E = 128, ROW_W1R = 131,
               ROW_WG2 = 132, ROW_B2 = 133, ROW_BG1 = 134;
-constexpr int TE = 32;         // edges per backward tile
-constexpr int BWD_ROWS = 16;   // dst rows per backward block
+// the per-feature weights, f32 [LW_ROWS][H] in shared memory
+constexpr int LW_W1R = 0, LW_WG2 = 1, LW_B2 = 2, LW_BG1 = 3, LW_W1E = 4, LW_ROWS = 7;
+// f32 backward: blocks of BWD_WARPS warps walk ranges of BWD_ROWS dst rows in
+// tiles of TE edges; BWD_FG feature groups in the products; BWD_BLOCKS blocks
+// per SM, each taking the next range from a counter until none is left
+// (BWD_PERSIST 1), or one block per range (0)
+constexpr int TE = 48;
+constexpr int BWD_ROWS = 8;
+constexpr int BWD_WARPS = 8;
+constexpr int BWD_PWARPS = 8;   // warps that run the chain products
+constexpr int BWD_FG = 32;
+constexpr int BWD_BLOCKS = 2;
+constexpr int BWD_PERSIST = 1;
+constexpr int BWD_THREADS = BWD_WARPS * 32;
+constexpr int LDT = H + 4;                      // f32 tile row stride
+constexpr int BWD_EG = BWD_PWARPS * 32 / BWD_FG;  // edge groups of the products
+constexpr int RF = H / BWD_FG;                  // features per thread
+constexpr int RE = TE / BWD_EG;                 // edges per thread
+constexpr int EPW = TE / BWD_WARPS;             // edge rows per warp, elementwise passes
+// edge rows a warp's elementwise passes run at once, their loads and
+// reductions interleaved; more than one spills registers at 2 blocks per SM
+constexpr int PG = 1;
+constexpr int DF = H * BWD_ROWS / BWD_THREADS;  // dUd features per thread
+constexpr int BWD_DWC = 4;                      // columns of a thread's dW2 / dWg1 tiles
+constexpr int DW_KG = H / BWD_DWC;              // column groups of the dW tiles
+constexpr int DWT = 16 * DW_KG;                 // threads that own dW tiles
+static_assert(BWD_FG % 8 == 0 && BWD_PWARPS % (BWD_FG / 8) == 0 && RF % 2 == 0 &&
+                  BWD_PWARPS <= BWD_WARPS,
+              "f32_product: a warp spans 4 edge groups x 8 feature groups");
+static_assert(TE % BWD_EG == 0 && TE % BWD_WARPS == 0 && EPW <= 32 && EPW % PG == 0,
+              "edges of a tile");
+static_assert(DF % 2 == 0 && BWD_THREADS % BWD_ROWS == 0, "dUd: float2s of one row per thread");
+static_assert(BWD_DWC % 4 == 0 && DW_KG % 8 == 0 && DWT <= BWD_THREADS,
+              "dW2 and dWg1 in 4 x BWD_DWC tiles, a warp spanning 4 x 8 of them");
 constexpr size_t BWD_SMEM =
-    (4 * H * H + 5 * TE * H + 4 * TE) * sizeof(float) + TE * sizeof(int);
+    (2 * H * LDT + 5 * TE * LDT + 2 * LW_ROWS * H + BWD_ROWS * H + 2 * BWD_ROWS * 4 + 3 * TE * 4 +
+     BWD_WARPS * BWD_ROWS * 4) * sizeof(float) + (2 * TE + BWD_ROWS + 2) * sizeof(int);
+static_assert(BWD_BLOCKS * (BWD_SMEM + 1024) <= 228 * 1024,
+              "BWD_BLOCKS f32 backward blocks fit in one SM's shared memory");
 
 // round to bf16 and back
 __device__ __forceinline__ float rnd(float v) {
@@ -184,7 +242,7 @@ struct Chain {
   float ea[FE_MAX];
 };
 
-// The f32 chain of edge (d, s), for the f32 forward and backward.  bufA /
+// The f32 chain of edge (d, s), for the f32 forward.  bufA /
 // bufM are this warp's 64-float shared buffers for a1 and m (the operands of
 // the two chain products); the caller synchronises the warp before a buffer
 // is reused.
@@ -266,7 +324,112 @@ edge_fwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// f32 backward: register-tiled FP32 products over tiles of edges
+// ---------------------------------------------------------------------------
+
+// A lane's features 2 lane, 2 lane + 1 of v added to a row of 64 sums in
+// shared memory, kept as [2][32] (feature 2 l + c at 32 c + l) so that a
+// warp's additions fall in distinct banks; several warps add to one row.
+__device__ __forceinline__ void add2(float* row, int lane, float2 v) {
+  atomicAdd(row + lane, v.x);
+  atomicAdd(row + 32 + lane, v.y);
+}
+
+// the f32 backward's logistic: exact (expf, IEEE division)
+__device__ __forceinline__ float sig_f32(float z) { return sigmoid(z); }
+
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + j);
+      v[j] = t.x; v[j + 1] = t.y; v[j + 2] = t.z; v[j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + j);
+      v[j] = t.x; v[j + 1] = t.y;
+    }
+  }
+}
+
+// Feature j of thread group ng in X @ W: float4s of a W row 4 BWD_FG apart
+// (RF a multiple of 4), else RF consecutive features.
+__device__ __forceinline__ int nt_feature(int ng, int j) {
+  return RF % 4 == 0 ? 4 * ng + (j & 3) + (j >> 2) * 4 * BWD_FG : RF * ng + j;
+}
+
+// Column c of a dW tile of column group kg: float4s 4 DW_KG apart.
+__device__ __forceinline__ int dw_col(int kg, int c) {
+  return 4 * kg + (c & 3) + (c >> 2) * 4 * DW_KG;
+}
+
+// Out = X @ W (TRANS false) or X @ W^T (TRANS true) over one tile of edges,
+// in exact f32 on the CUDA cores: X [TE][LDT] and W [H][LDT] ([in][out]) in
+// shared memory.  Thread (eg, ng) keeps RE x RF sums in registers, for edges
+// eg + BWD_EG i and features nt_feature(ng, j) (X @ W: float4s of a W row
+// per k) or ng + BWD_FG j (X @ W^T: a float4 of W row ng + BWD_FG j per
+// 4 k, W's rows read along k as X's are).  A warp spans 4 edge groups x 8
+// feature groups, so each load is one shared-memory wavefront.  Every sum
+// goes to epi(edge, feature, sum).  The first BWD_PWARPS warps run it.
+template <bool TRANS, class Epi>
+__device__ __forceinline__ void f32_product(const float* X, const float* W, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= BWD_PWARPS) return;
+  const int ng = (warp % (BWD_FG / 8)) * 8 + (lane & 7);
+  const int eg = (warp / (BWD_FG / 8)) * 4 + (lane >> 3);
+  float acc[RE][RF];
+#pragma unroll
+  for (int i = 0; i < RE; ++i)
+#pragma unroll
+    for (int j = 0; j < RF; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < H; k += 4) {
+    float a[RE][4];
+#pragma unroll
+    for (int i = 0; i < RE; ++i) load_row<4>(X + (eg + BWD_EG * i) * LDT + k, a[i]);
+    if constexpr (TRANS) {
+#pragma unroll
+      for (int j = 0; j < RF; ++j) {
+        float b[4];
+        load_row<4>(W + (ng + BWD_FG * j) * LDT + k, b);
+#pragma unroll
+        for (int i = 0; i < RE; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) acc[i][j] += a[i][kk] * b[kk];
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[RF];
+        if constexpr (RF % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < RF; j += 4) load_row<4>(W + (k + kk) * LDT + nt_feature(ng, j), b + j);
+        } else {
+          load_row<RF>(W + (k + kk) * LDT + RF * ng, b);
+        }
+#pragma unroll
+        for (int i = 0; i < RE; ++i)
+#pragma unroll
+          for (int j = 0; j < RF; ++j) acc[i][j] += a[i][kk] * b[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RE; ++i)
+#pragma unroll
+    for (int j = 0; j < RF; ++j)
+      epi(eg + BWD_EG * i, TRANS ? ng + BWD_FG * j : nt_feature(ng, j), acc[i][j]);
+}
+
+// the f32 backward's next row range, zeroed on the stream before each launch:
+// two launches of the kernel must not overlap on two streams
+__device__ int bwd_next_range;
+
+__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
 edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
                 const float* __restrict__ x, const int* __restrict__ rowptr,
                 const int* __restrict__ src, const int* __restrict__ dst,
@@ -276,183 +439,329 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
                 float* __restrict__ dxd, float* __restrict__ dxs,
                 float* __restrict__ dw, int n) {
   extern __shared__ __align__(16) float smem[];
-  float* sW2 = smem;
-  float* sW2T = sW2 + H * H;
-  float* sWg1 = sW2T + H * H;
-  float* sWg1T = sWg1 + H * H;
-  float* A1 = sWg1T + H * H;      // [TE][H] a1 per staged edge
-  float* M = A1 + TE * H;         // [TE][H] m
-  float* DZG = M + TE * H;        // [TE][H] d_zg
-  float* DZ2 = DZG + TE * H;      // [TE][H] d_z2
-  float* DZ1 = DZ2 + TE * H;      // [TE][H] d_z1
-  float* DDIFF = DZ1 + TE * H;    // [TE][4] d(x_d - x_s)
-  int* DSTI = reinterpret_cast<int*>(DDIFF + 4 * TE);  // [TE] dst row, -1 = empty
+  float* sW2 = smem;                     // [H][LDT]
+  float* sWg1 = sW2 + H * LDT;           // [H][LDT]
+  float* sA1 = sWg1 + H * LDT;           // [TE][LDT] a1 = silu(z1)
+  float* sM = sA1 + TE * LDT;            // [TE][LDT] m = silu(z2)
+  float* sD1 = sM + TE * LDT;            // [TE][LDT] dsilu(z1), then d_z1
+  float* sD2 = sD1 + TE * LDT;           // [TE][LDT] dsilu(z2), then d_z2
+  float* sG = sD2 + TE * LDT;            // [TE][LDT] m Wg1, then d_zg
+  float* sLW = sG + TE * LDT;            // [LW_ROWS][H] per-feature weights
+  float* sGW = sLW + LW_ROWS * H;        // [LW_ROWS][2][32] their gradients (add2)
+  float* sDM = sGW + LW_ROWS * H;        // [BWD_ROWS][H] d m_sum of the range's rows
+  float* sXD = sDM + BWD_ROWS * H;       // [BWD_ROWS][4] x of the rows
+  float* sDT = sXD + BWD_ROWS * 4;       // [BWD_ROWS][4] d t_sum of the rows
+  float* sDIFF = sDT + BWD_ROWS * 4;     // [TE][4] x_d - x_s, radial
+  float* sEA = sDIFF + TE * 4;           // [TE][4] edge attributes
+  float* sDD = sEA + TE * 4;             // [TE][4] dt gate
+  float* sDXD = sDD + TE * 4;            // [BWD_WARPS][BWD_ROWS][4] per-warp dx_dst sums
+  int* sSRC = reinterpret_cast<int*>(sDXD + BWD_WARPS * BWD_ROWS * 4);  // [TE]
+  int* sROW = sSRC + TE;                 // [TE] dst row - r0; -1 past the range's edges
+  int* sRP = sROW + TE;                  // [BWD_ROWS + 1] rowptr[r0 ..]
+  int* sRANGE = sRP + BWD_ROWS + 1;      // the block's current range
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < H * H; i += THREADS) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, k0 = 2 * lane;
+  for (int i = tid; i < H * H; i += BWD_THREADS) {
     const int j = i / H, k = i % H;
-    const float a = wpack[ROW_W2 * H + i], b = wpack[ROW_WG1 * H + i];
-    sW2[i] = a;
-    sW2T[k * H + j] = a;
-    sWg1[i] = b;
-    sWg1T[k * H + j] = b;
+    sW2[j * LDT + k] = wpack[ROW_W2 * H + i];
+    sWg1[j * LDT + k] = wpack[ROW_WG1 * H + i];
   }
-  __syncthreads();
-
-  const int r0 = blockIdx.x * BWD_ROWS;
-  const int r1 = min(n, r0 + BWD_ROWS);
-  const int e0 = rowptr[r0], e1 = rowptr[r1];
-  if (e0 >= e1) return;  // block-uniform: rows without edges keep their zeros
-
-  const int lane = tid & 31, warp = tid >> 5, k0 = 2 * lane;
-  const LaneW w = load_lane_weights(wpack, k0, fe);
-  float2 g_b2 = make_float2(0.f, 0.f), g_bg1 = g_b2, g_wg2 = g_b2, g_w1r = g_b2;
-  float2 g_w1e[FE_MAX];
-#pragma unroll
-  for (int f = 0; f < FE_MAX; ++f) g_w1e[f] = make_float2(0.f, 0.f);
-
-  const int kg = tid & 15, jg = tid >> 4;  // this thread's 4x4 weight-grad tile
-  float tW2[4][4], tWg1[4][4];
+  for (int i = tid; i < LW_ROWS * H; i += BWD_THREADS) {
+    const int row = i / H, k = i % H;
+    const int from = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
+                     : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
+                     : ROW_W1E + row - LW_W1E;
+    sLW[i] = row < LW_W1E || row - LW_W1E < fe ? wpack[from * H + k] : 0.f;
+    sGW[i] = 0.f;
+  }
+  // threads tid < DWT own a 4 x BWD_DWC tile of dW2 and one of dWg1: rows
+  // 4 jg .., columns dw_col(kg, c); a warp spans 4 jg x 8 kg
+  const int jg = (warp / (DW_KG / 8)) * 4 + (lane >> 3);
+  const int kg = (warp % (DW_KG / 8)) * 8 + (lane & 7);
+  float tW2[4][BWD_DWC], tWg1[4][BWD_DWC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) tW2[a][b] = tWg1[a][b] = 0.f;
+    for (int b = 0; b < BWD_DWC; ++b) tW2[a][b] = tWg1[a][b] = 0.f;
+  // this thread's dUd row of the range and its DF features
+  const int drow = tid / (BWD_THREADS / BWD_ROWS), df0 = (tid % (BWD_THREADS / BWD_ROWS)) * DF;
 
-  int cur_row = -1;  // dst-role running sum (threads 0..H+2)
-  float cur_acc = 0.f;
-
-  for (int t0 = e0; t0 < e1; t0 += TE) {
-    // ---- phase 1: chain forward + backward, one edge at a time per warp ----
-    for (int i = 0; i < TE / WARPS; ++i) {
-      const int te = warp * (TE / WARPS) + i;
-      const int e = t0 + te;
-      float* a1r = A1 + te * H;
-      float* mr = M + te * H;
-      float* dzgr = DZG + te * H;
-      float* dz2r = DZ2 + te * H;
-      float* dz1r = DZ1 + te * H;
-      if (e >= e1) {  // warp-uniform tail of the last tile
-        a1r[k0] = a1r[k0 + 1] = mr[k0] = mr[k0 + 1] = 0.f;
-        dzgr[k0] = dzgr[k0 + 1] = dz2r[k0] = dz2r[k0 + 1] = 0.f;
-        dz1r[k0] = dz1r[k0 + 1] = 0.f;
-        if (lane == 0) DSTI[te] = -1;
-        if (lane < 4) DDIFF[4 * te + lane] = 0.f;
-        continue;
-      }
-      const int d = dst[e], s = src[e];
-      const float2 udr = load2(ud, (long)d * H + k0);
-      const float xd[3] = {x[3 * d], x[3 * d + 1], x[3 * d + 2]};
-      Chain c;
-      chain_fwd(c, udr, us, s, x, xd, ea + (long)e * fe, fe, w, sW2, sWg1, a1r, mr, k0);
-
-      const float dt[3] = {dts[3 * d], dts[3 * d + 1], dts[3 * d + 2]};
-      const float2 dm = load2(dms, (long)d * H + k0);
-      const float d_gate = c.diff[0] * dt[0] + c.diff[1] * dt[1] + c.diff[2] * dt[2];
-      float d_diff[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) d_diff[k] = dt[k] * c.gate;
-      const float2 dzg = make_float2(d_gate * w.wg2.x * dsilu(c.zg.x, c.sg.x),
-                                     d_gate * w.wg2.y * dsilu(c.zg.y, c.sg.y));
-      dzgr[k0] = dzg.x;
-      dzgr[k0 + 1] = dzg.y;
-      __syncwarp();
-      float2 t = matvec(dzgr, sWg1T, k0);  // d_m = dm + Wg1 d_zg
-      const float2 dz2 = make_float2((dm.x + t.x) * dsilu(c.z2.x, c.s2.x),
-                                     (dm.y + t.y) * dsilu(c.z2.y, c.s2.y));
-      dz2r[k0] = dz2.x;
-      dz2r[k0 + 1] = dz2.y;
-      __syncwarp();
-      t = matvec(dz2r, sW2T, k0);  // d_a1 = W2 d_z2
-      const float2 dz1 = make_float2(t.x * dsilu(c.z1.x, c.s1.x), t.y * dsilu(c.z1.y, c.s1.y));
-      const float d_radial = warp_sum(dz1.x * w.w1r.x + dz1.y * w.w1r.y);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) d_diff[k] += 2.f * c.diff[k] * d_radial;
-
-      // src role: atomics
-      atomicAdd(dus + (long)s * H + k0, dz1.x);
-      atomicAdd(dus + (long)s * H + k0 + 1, dz1.y);
-      if (lane < 3) atomicAdd(dxs + 3 * s + lane, pick3(d_diff, lane));
-      // dst role: staged for the per-row sums of phase 2
-      dz1r[k0] = dz1.x;
-      dz1r[k0 + 1] = dz1.y;
-      if (lane == 0) DSTI[te] = d;
-      if (lane < 3) DDIFF[4 * te + lane] = pick3(d_diff, lane);
-      // per-feature weight grads
-      g_b2.x += dz2.x;  g_b2.y += dz2.y;
-      g_bg1.x += dzg.x; g_bg1.y += dzg.y;
-      g_wg2.x += c.g1.x * d_gate;
-      g_wg2.y += c.g1.y * d_gate;
-      g_w1r.x += c.radial * dz1.x;
-      g_w1r.y += c.radial * dz1.y;
-#pragma unroll
-      for (int f = 0; f < FE_MAX; ++f) {
-        g_w1e[f].x += c.ea[f] * dz1.x;
-        g_w1e[f].y += c.ea[f] * dz1.y;
-      }
-      __syncwarp();
+  const int n_ranges = (n + BWD_ROWS - 1) / BWD_ROWS;
+  for (int it = 0;; ++it) {
+    __syncthreads();  // every thread has read the last range and is done with its rows
+    if (tid == 0)
+      *sRANGE = BWD_PERSIST ? atomicAdd(&bwd_next_range, 1) : it == 0 ? blockIdx.x : n_ranges;
+    __syncthreads();
+    const int range = *sRANGE;
+    if (range >= n_ranges) break;
+    const int r0 = range * BWD_ROWS, nr = min(n - r0, BWD_ROWS);
+    const int e0 = rowptr[r0], e1 = rowptr[r0 + nr];
+    if (e0 >= e1) continue;  // block-uniform: the wrapper zeroes the outputs
+    for (int i = tid; i < BWD_ROWS * H; i += BWD_THREADS)
+      sDM[i] = i / H < nr ? dms[(long)r0 * H + i] : 0.f;
+    if (tid < BWD_ROWS * 4) {
+      const int r = tid >> 2, c = tid & 3;
+      const bool live = r < nr && c < 3;
+      sXD[tid] = live ? x[3 * (r0 + r) + c] : 0.f;
+      sDT[tid] = live ? dts[3 * (r0 + r) + c] : 0.f;
     }
+    if (tid <= nr) sRP[tid] = rowptr[r0 + tid];
+    for (int i = tid; i < BWD_WARPS * BWD_ROWS * 4; i += BWD_THREADS) sDXD[i] = 0.f;
+    float dacc[DF];
+#pragma unroll
+    for (int f = 0; f < DF; ++f) dacc[f] = 0.f;
     __syncthreads();
 
-    // ---- phase 2: dW2 += a1^T d_z2, dWg1 += m^T d_zg over the tile ----
+    for (int t0 = e0; t0 < e1; t0 += TE) {
+      // ---- per edge row: scalars, z1, a1 = silu(z1), dsilu(z1); PG rows at
+      // a time, without branches, so that their loads and chains overlap
+      // (rows past the range's last edge recompute it and store zeros) ----
+      {
+        const int el = min(t0 + warp * EPW + (lane < EPW ? lane : 0), e1 - 1);
+        const int s_l = src[el], d_l = dst[el];
+        const float2 w1r = load2(sLW, LW_W1R * H + k0);
+        float2 w1e[FE_MAX];
+#pragma unroll
+        for (int f = 0; f < FE_MAX; ++f) w1e[f] = load2(sLW, (LW_W1E + f) * H + k0);
+#pragma unroll
+        for (int g = 0; g < EPW; g += PG) {
+#pragma unroll
+          for (int i = g; i < g + PG; ++i) {
+            const int te = warp * EPW + i, e = min(t0 + te, e1 - 1);
+            const bool live = t0 + te < e1;
+            const int s = __shfl_sync(0xffffffffu, s_l, i);
+            const int d = __shfl_sync(0xffffffffu, d_l, i);
+            const int r = d - r0;
+            float diff[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) diff[c] = sXD[4 * r + c] - x[3 * s + c];
+            const float radial = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+            const float2 u = load2(us, (long)s * H + k0);
+            const float2 udr = load2(ud, (long)d * H + k0);
+            float2 eterm = make_float2(0.f, 0.f);
+            float eav[FE_MAX];
+#pragma unroll
+            for (int f = 0; f < FE_MAX; ++f) {
+              eav[f] = f < fe ? ea[(long)e * fe + f] : 0.f;
+              eterm.x += eav[f] * w1e[f].x;
+              eterm.y += eav[f] * w1e[f].y;
+            }
+            const float2 z1 = make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
+                                          (udr.y + u.y) + radial * w1r.y + eterm.y);
+            const float2 s1 = make_float2(sig_f32(z1.x), sig_f32(z1.y));
+            const float2 a1 = live ? make_float2(z1.x * s1.x, z1.y * s1.y) : make_float2(0.f, 0.f);
+            const float2 ds1 = live ? make_float2(dsilu(z1.x, s1.x), dsilu(z1.y, s1.y))
+                                    : make_float2(0.f, 0.f);
+            *reinterpret_cast<float2*>(sA1 + te * LDT + k0) = a1;
+            *reinterpret_cast<float2*>(sD1 + te * LDT + k0) = ds1;
+            if (lane == 0) {
+              sSRC[te] = s;
+              sROW[te] = live ? r : -1;
+            }
+            if (lane < 3) {
+              sDIFF[4 * te + lane] = pick3(diff, lane);
+              sEA[4 * te + lane] = pick3(eav, lane);
+            } else if (lane == 3) {
+              sDIFF[4 * te + 3] = radial;
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- z2 = a1 W2 + b2: m = silu(z2) and dsilu(z2) ----
+      f32_product<false>(sA1, sW2, [&](int e, int k, float t) {
+        const float z2 = t + sLW[LW_B2 * H + k];
+        const float s2 = sig_f32(z2);
+        sM[e * LDT + k] = sROW[e] >= 0 ? z2 * s2 : 0.f;
+        sD2[e * LDT + k] = dsilu(z2, s2);
+      });
+      __syncthreads();
+
+      // ---- m Wg1 ----
+      f32_product<false>(sM, sWg1, [&](int e, int k, float t) { sG[e * LDT + k] = t; });
+      __syncthreads();
+
+      // ---- per edge row: zg = m Wg1 + bg1, the gate, d_zg over m Wg1; PG
+      // rows at a time, their gate reductions interleaved ----
+      {
+        const float2 bg1 = load2(sLW, LW_BG1 * H + k0);
+        const float2 wg2 = load2(sLW, LW_WG2 * H + k0);
+        float2 gbg1 = make_float2(0.f, 0.f), gwg2 = gbg1;
+#pragma unroll
+        for (int g = 0; g < EPW; g += PG) {
+          float2 zg[PG], sg[PG], g1[PG];
+          float p[PG];
+#pragma unroll
+          for (int i = 0; i < PG; ++i) {
+            const float2 t = load2(sG, (warp * EPW + g + i) * LDT + k0);
+            zg[i] = make_float2(t.x + bg1.x, t.y + bg1.y);
+            sg[i] = make_float2(sig_f32(zg[i].x), sig_f32(zg[i].y));
+            g1[i] = make_float2(zg[i].x * sg[i].x, zg[i].y * sg[i].y);
+            p[i] = g1[i].x * wg2.x + g1[i].y * wg2.y;
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int i = 0; i < PG; ++i) p[i] += __shfl_xor_sync(0xffffffffu, p[i], o);
+#pragma unroll
+          for (int i = 0; i < PG; ++i) {
+            const int te = warp * EPW + g + i, r = sROW[te];
+            const float* dt = sDT + 4 * max(r, 0);
+            const float* df = sDIFF + 4 * te;
+            const float d_gate = r >= 0 ? df[0] * dt[0] + df[1] * dt[1] + df[2] * dt[2] : 0.f;
+            const float2 dzg = make_float2(d_gate * wg2.x * dsilu(zg[i].x, sg[i].x),
+                                           d_gate * wg2.y * dsilu(zg[i].y, sg[i].y));
+            if (lane < 3) sDD[4 * te + lane] = dt[lane] * p[i];
+            gbg1.x += dzg.x;
+            gbg1.y += dzg.y;
+            gwg2.x += g1[i].x * d_gate;
+            gwg2.y += g1[i].y * d_gate;
+            *reinterpret_cast<float2*>(sG + te * LDT + k0) = dzg;
+          }
+        }
+        add2(sGW + LW_BG1 * H, lane, gbg1);
+        add2(sGW + LW_WG2 * H, lane, gwg2);
+      }
+      __syncthreads();
+
+      // ---- d_z2 = (dm + d_zg Wg1^T) dsilu(z2), over dsilu(z2) ----
+      f32_product<true>(sG, sWg1, [&](int e, int k, float t) {
+        const int r = sROW[e];
+        float& v = sD2[e * LDT + k];
+        v = r >= 0 ? (sDM[r * H + k] + t) * v : 0.f;
+      });
+      __syncthreads();
+
+      // ---- d_z1 = d_z2 W2^T dsilu(z1), over dsilu(z1) ----
+      f32_product<true>(sD2, sW2, [&](int e, int k, float t) {
+        float& v = sD1[e * LDT + k];
+        v = sROW[e] >= 0 ? t * v : 0.f;
+      });
+      __syncthreads();
+
+      // ---- per edge row: d_radial, d(x_d - x_s); src role out with atomics,
+      // dst role into this warp's dx_dst rows; PG rows at a time ----
+      {
+        const float2 w1r = load2(sLW, LW_W1R * H + k0);
+        float2 gb2 = make_float2(0.f, 0.f), gw1r = gb2, gw1e[FE_MAX];
+#pragma unroll
+        for (int f = 0; f < FE_MAX; ++f) gw1e[f] = gb2;
+#pragma unroll
+        for (int g = 0; g < EPW; g += PG) {
+          float2 dz1[PG];
+          float p[PG];
+#pragma unroll
+          for (int i = 0; i < PG; ++i) {
+            dz1[i] = load2(sD1, (warp * EPW + g + i) * LDT + k0);
+            p[i] = dz1[i].x * w1r.x + dz1[i].y * w1r.y;
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int i = 0; i < PG; ++i) p[i] += __shfl_xor_sync(0xffffffffu, p[i], o);
+#pragma unroll
+          for (int i = 0; i < PG; ++i) {
+            const int te = warp * EPW + g + i, r = sROW[te];
+            if (r >= 0) {  // warp-uniform
+              const int s = sSRC[te];
+              atomicAdd(reinterpret_cast<float2*>(dus + (long)s * H + k0), dz1[i]);
+              if (lane < 3) {
+                const float dd = sDD[4 * te + lane] + 2.f * sDIFF[4 * te + lane] * p[i];
+                atomicAdd(dxs + 3 * s + lane, dd);
+                sDXD[(warp * BWD_ROWS + r) * 4 + lane] += dd;
+              }
+            }
+            // d_z1 and d_z2 are zeros past the last edge
+            const float2 dz2 = load2(sD2, te * LDT + k0);
+            const float radial = sDIFF[4 * te + 3];
+            gb2.x += dz2.x;
+            gb2.y += dz2.y;
+            gw1r.x += radial * dz1[i].x;
+            gw1r.y += radial * dz1[i].y;
+#pragma unroll
+            for (int f = 0; f < FE_MAX; ++f) {
+              gw1e[f].x += sEA[4 * te + f] * dz1[i].x;
+              gw1e[f].y += sEA[4 * te + f] * dz1[i].y;
+            }
+          }
+        }
+        add2(sGW + LW_B2 * H, lane, gb2);
+        add2(sGW + LW_W1R * H, lane, gw1r);
+#pragma unroll
+        for (int f = 0; f < FE_MAX; ++f)
+          if (f < fe) add2(sGW + (LW_W1E + f) * H, lane, gw1e[f]);
+      }
+
+      // ---- phase 2: dW2 += a1^T d_z2, dWg1 += m^T d_zg over the tile ----
+      if (tid < DWT) {
 #pragma unroll 4
-    for (int te = 0; te < TE; ++te) {
-      const float4 a = *reinterpret_cast<const float4*>(A1 + te * H + 4 * jg);
-      const float4 b = *reinterpret_cast<const float4*>(DZ2 + te * H + 4 * kg);
-      const float4 p = *reinterpret_cast<const float4*>(M + te * H + 4 * jg);
-      const float4 q = *reinterpret_cast<const float4*>(DZG + te * H + 4 * kg);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-      const float pv[4] = {p.x, p.y, p.z, p.w}, qv[4] = {q.x, q.y, q.z, q.w};
+        for (int te = 0; te < TE; ++te) {  // weight-gradient products
+          float av[4], pv[4], bv[BWD_DWC], qv[BWD_DWC];
+          load_row<4>(sA1 + te * LDT + 4 * jg, av);
+          load_row<4>(sM + te * LDT + 4 * jg, pv);
+#pragma unroll
+          for (int c = 0; c < BWD_DWC; c += 4) {
+            load_row<4>(sD2 + te * LDT + dw_col(kg, c), bv + c);
+            load_row<4>(sG + te * LDT + dw_col(kg, c), qv + c);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < BWD_DWC; ++c) {
+              tW2[r][c] += av[r] * bv[c];
+              tWg1[r][c] += pv[r] * qv[c];
+            }
+        }
+      }
+      // dUd: this thread's row, over its edges in the tile (edges are
+      // dst-sorted, so a row's edges are contiguous)
+      if (drow < nr) {
+        const int lo = max(sRP[drow], t0) - t0, hi = min(sRP[drow + 1], t0 + TE) - t0;
+        for (int te = lo; te < hi; ++te) {
+          float v[DF];
+          load_row<DF>(sD1 + te * LDT + df0, v);
+#pragma unroll
+          for (int f = 0; f < DF; ++f) dacc[f] += v[f];
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- the range's dUd and dx_dst rows, each stored once ----
+    if (drow < nr) {
+#pragma unroll
+      for (int f = 0; f < DF; f += 2)
+        *reinterpret_cast<float2*>(dud + (long)(r0 + drow) * H + df0 + f) =
+            make_float2(dacc[f], dacc[f + 1]);
+    }
+    if (tid < nr * 3) {
+      const int r = tid / 3, c = tid % 3;
+      float acc = 0.f;
+      for (int v = 0; v < BWD_WARPS; ++v) acc += sDXD[(v * BWD_ROWS + r) * 4 + c];
+      dxd[3 * r0 + tid] = acc;
+    }
+  }
+
+  {  // ---- this block's weight grads into dw, once ----
+    if (tid < DWT) {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          tW2[r][cc] += av[r] * bv[cc];
-          tWg1[r][cc] += pv[r] * qv[cc];
+        for (int c = 0; c < BWD_DWC; ++c) {
+          atomicAdd(dw + (ROW_W2 + 4 * jg + r) * H + dw_col(kg, c), tW2[r][c]);
+          atomicAdd(dw + (ROW_WG1 + 4 * jg + r) * H + dw_col(kg, c), tWg1[r][c]);
         }
     }
-    // dst-role sums: edges are dst-sorted, so each row's edges are contiguous
-    // and lie in this block; a row's sum is stored once, when the row ends
-    if (tid < H + 3) {
-      for (int te = 0; te < TE; ++te) {
-        const int d = DSTI[te];
-        if (d < 0) break;
-        if (d != cur_row) {
-          if (cur_row >= 0) {
-            if (tid < H) dud[(long)cur_row * H + tid] = cur_acc;
-            else dxd[3 * cur_row + tid - H] = cur_acc;
-          }
-          cur_row = d;
-          cur_acc = 0.f;
-        }
-        cur_acc += tid < H ? DZ1[te * H + tid] : DDIFF[4 * te + tid - H];
-      }
+    // the per-feature rows, summed in shared memory (the loop ended on a
+    // barrier after the last additions)
+    for (int i = tid; i < (LW_W1E + fe) * H; i += BWD_THREADS) {
+      const int row = i / H, j = i % H;
+      const int to = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
+                     : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
+                     : ROW_W1E + row - LW_W1E;
+      atomicAdd(dw + to * H + 2 * (j & 31) + (j >> 5), sGW[i]);
     }
-    __syncthreads();
-  }
-  if (tid < H + 3 && cur_row >= 0) {
-    if (tid < H) dud[(long)cur_row * H + tid] = cur_acc;
-    else dxd[3 * cur_row + tid - H] = cur_acc;
-  }
-
-  // ---- this block's weight grads into dw ----
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      atomicAdd(dw + (ROW_W2 + 4 * jg + r) * H + 4 * kg + cc, tW2[r][cc]);
-      atomicAdd(dw + (ROW_WG1 + 4 * jg + r) * H + 4 * kg + cc, tWg1[r][cc]);
-    }
-  atomicAdd(dw + ROW_B2 * H + k0, g_b2.x);
-  atomicAdd(dw + ROW_B2 * H + k0 + 1, g_b2.y);
-  atomicAdd(dw + ROW_BG1 * H + k0, g_bg1.x);
-  atomicAdd(dw + ROW_BG1 * H + k0 + 1, g_bg1.y);
-  atomicAdd(dw + ROW_WG2 * H + k0, g_wg2.x);
-  atomicAdd(dw + ROW_WG2 * H + k0 + 1, g_wg2.y);
-  atomicAdd(dw + ROW_W1R * H + k0, g_w1r.x);
-  atomicAdd(dw + ROW_W1R * H + k0 + 1, g_w1r.y);
-  for (int f = 0; f < fe; ++f) {
-    atomicAdd(dw + (ROW_W1E + f) * H + k0, g_w1e[f].x);
-    atomicAdd(dw + (ROW_W1E + f) * H + k0 + 1, g_w1e[f].y);
   }
 }
 
@@ -479,8 +788,6 @@ constexpr int TC_TILE = TC_TE * LDB;    // one bf16 [TC_TE][LDB] tile
 // the dst-role dUd rows and the dW1 radial / edge-attr rows.  The forward's
 // P is the one-hot part, PQ's first PQ_RAD rows.
 constexpr int PQ_ROWS = 32, PQ_RAD = 16, PQ_EA = 17;
-// the per-feature weights, f32 [LW_ROWS][H] in shared memory
-constexpr int LW_W1R = 0, LW_WG2 = 1, LW_B2 = 2, LW_BG1 = 3, LW_W1E = 4, LW_ROWS = 7;
 static_assert(TC_TE == H, "the weight tiles and the edge tiles share one size");
 static_assert(TC_EPW * 4 == 32, "fetch_rows: four lanes per Us row, eight rows per warp");
 static_assert(TC_ROWS <= PQ_RAD, "one-hot rows of PQ");
@@ -1147,7 +1454,6 @@ extern "C" int fastegnn_edge_bwd(int bf16, const void* ud, const void* us,
                                  int n, void* stream) {
   if (fe < 0 || fe > FE_MAX || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const dim3 grid((n + BWD_ROWS - 1) / BWD_ROWS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {  // tensor cores; dst rows come from rowptr
@@ -1158,10 +1464,25 @@ extern "C" int fastegnn_edge_bwd(int bf16, const void* ud, const void* us,
         static_cast<const __nv_bfloat16*>(ud), static_cast<const __nv_bfloat16*>(us), x,
         rowptr, src, ea, fe, wpack, dms, dts, dud, dus, dxd, dxs, dw, n);
   } else {
+    // BWD_BLOCKS blocks per SM walk the ranges of BWD_ROWS rows
+    int blocks = (n + BWD_ROWS - 1) / BWD_ROWS, dev = 0, sms = 0;
     err = cudaFuncSetAttribute(edge_bwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(edge_bwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && BWD_PERSIST) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && BWD_PERSIST)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    edge_bwd_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
+    if (BWD_PERSIST) {
+      blocks = blocks < BWD_BLOCKS * sms ? blocks : BWD_BLOCKS * sms;
+      void* next = nullptr;
+      err = cudaGetSymbolAddress(&next, bwd_next_range);
+      if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    edge_bwd_kernel<<<dim3(blocks), BWD_THREADS, BWD_SMEM, st>>>(
         static_cast<const float*>(ud), static_cast<const float*>(us), x, rowptr, src, dst,
         ea, fe, wpack, dms, dts, dud, dus, dxd, dxs, dw, n);
   }

@@ -1,4 +1,4 @@
-"""Design comparisons of the port's segment-sum and bf16 edge-block kernels, on one GPU.
+"""Design comparisons of the port's segment-sum and edge-block kernels, on one GPU.
 
     python3 scripts/torch_kernel_lab.py [segment_sum] [edge_bwd] [edge_fwd]
 
@@ -16,7 +16,12 @@ seed 0), as medians over runs of back-to-back launches between CUDA events
   per SM (forward), an approximate sigmoid, and knockouts that each remove
   one part of the kernel to attribute its time (a knockout's output is
   wrong; only its time is read); the f32 forward, the one-warp-per-row
-  design on the CUDA cores, is timed beside the bf16 forward.
+  design on the CUDA cores, is timed beside the bf16 forward;
+- edge_block_bwd in f32 (register-tiled products on the CUDA cores): edges
+  per tile, rows per range, the persistent grid, the register-tile shape,
+  an approximate sigmoid, and knockouts of the sigmoids, the chain
+  products, the dW products, the dUd row sums, the src-role atomics, the
+  warp reductions and the dw flush.
 
 Prints one line per variant: ms, and the largest error against the plain
 version relative to the largest value of each output; for the edge kernels
@@ -42,16 +47,19 @@ from fastegnn_tpu_torch.ops import _cuda_build, edge_kernel as ek, spmm  # noqa:
 
 LAB_DIR = _cuda_build.BUILD_DIR / "lab"
 TC_MARK = "// bf16 forward and backward on the tensor cores"
+F32_MARK = "// f32 backward: register-tiled FP32 products over tiles of edges"
 Edit = Callable[[str], str]
 
 
-def sub(old: str, new: str, after: str = "") -> Edit:
-    """Replace ``old`` (which must occur after ``after``) by ``new``."""
+def sub(old: str, new: str, after: str = "", before: str = "") -> Edit:
+    """Replace ``old`` (which must occur after ``after`` and, if given,
+    before ``before``) by ``new`` there."""
     def edit(src: str) -> str:
-        head, tail = src.split(after, 1) if after else ("", src)
-        if old not in tail:
+        head, rest = src.split(after, 1) if after else ("", src)
+        mid, tail = rest.split(before, 1) if before else (rest, "")
+        if old not in mid:
             raise ValueError(f"variant does not match the source: {old[:60]!r}")
-        return head + after + tail.replace(old, new)
+        return head + after + mid.replace(old, new) + (before + tail if before else "")
     return edit
 
 
@@ -101,6 +109,70 @@ EDGE_BWD: Dict[str, List[Edit]] = {
         sub("warp_sum(g1.x * wg2.x + g1.y * wg2.y)", "(g1.x * wg2.x + g1.y * wg2.y)", TC_MARK),
         sub("warp_sum(dz1.x * w1r.x + dz1.y * w1r.y)", "(dz1.x * w1r.x + dz1.y * w1r.y)",
             TC_MARK)],
+}
+
+
+def f32_sub(old: str, new: str) -> Edit:
+    """``sub`` within the f32 backward's part of the source."""
+    return sub(old, new, F32_MARK, TC_MARK)
+
+
+_F32_SIG = "{ return sigmoid(z); }"
+EDGE_BWD_F32: Dict[str, List[Edit]] = {
+    "committed: tiles of 48 edges, ranges of 8 rows, 6x2 register tiles, "
+    "2 blocks per SM taking ranges from a counter": [],
+    "one block per range (no persistent grid)": [knobs(BWD_PERSIST=0)],
+    "3x4 register tiles": [knobs(BWD_FG=16)],
+    "tiles of 32 edges (2x4 register tiles)": [knobs(TE=32, BWD_FG=16)],
+    "tiles of 32 edges, ranges of 16 rows, 2x4 register tiles (the first design)": [
+        knobs(TE=32, BWD_ROWS=16, BWD_FG=16)],
+    "ranges of 16 rows": [knobs(BWD_ROWS=16)],
+    "6 warps, 4x4 register tiles, ranges of 12 rows, dW tiles 4x8": [
+        knobs(BWD_WARPS=6, BWD_PWARPS=6, BWD_FG=16, BWD_ROWS=12, BWD_DWC=8)],
+    "tiles of 64 edges (4x4 register tiles), 1 block per SM": [
+        knobs(TE=64, BWD_FG=16, BWD_BLOCKS=1)],
+    "16 warps, tiles of 128 edges (4x4 register tiles), 1 block per SM": [
+        knobs(BWD_WARPS=16, BWD_PWARPS=16, BWD_FG=16, TE=128, BWD_ROWS=16, BWD_BLOCKS=1)],
+    "tiles of 128 edges (4x8 register tiles), 1 block per SM": [
+        knobs(BWD_FG=8, TE=128, BWD_BLOCKS=1)],
+    "tiles of 32, register tiles of 1 edge x 8 features": [knobs(TE=32, BWD_FG=8)],
+    "dW tiles 4x8 (half the threads)": [knobs(BWD_DWC=8)],
+    "4 of the 8 warps run the chain products (6x4 register tiles)": [
+        knobs(BWD_PWARPS=4, BWD_FG=16)],
+    "elementwise passes two edge rows at a time": [knobs(PG=2)],
+    "elementwise passes three edge rows at a time": [knobs(PG=3)],
+    "dW loop not unrolled": [f32_sub("#pragma unroll 4\n        for (int te = 0; te < TE; ++te) {",
+                                     "#pragma unroll 1\n        for (int te = 0; te < TE; ++te) {")],
+    "dW loop unrolled by 2": [f32_sub("#pragma unroll 4\n        for (int te = 0; te < TE; ++te) {",
+                                      "#pragma unroll 2\n        for (int te = 0; te < TE; ++te) {")],
+    "product k loop not unrolled": [f32_sub("#pragma unroll 2\n  for (int k = 0; k < H; k += 4) {",
+                                            "#pragma unroll 1\n  for (int k = 0; k < H; k += 4) {")],
+    "approximate sigmoid (__expf, __fdividef)": [
+        f32_sub(_F32_SIG, "{ return __fdividef(1.f, 1.f + __expf(-z)); }")],
+    "knockout: sigmoids": [f32_sub(_F32_SIG, "{ return 0.5f + 0.25f * z; }")],
+    "knockout: the four chain products": [
+        f32_sub("for (int k = 0; k < H; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
+    "knockout: dW products": [
+        f32_sub("for (int te = 0; te < TE; ++te) {  // weight-gradient products",
+                "for (int te = 0; te < 0; ++te) {")],
+    "knockout: the Us and Ud row gathers": [
+        f32_sub("load2(us, (long)s * H + k0)", "make_float2(0.f, 0.f)"),
+        f32_sub("load2(ud, (long)d * H + k0)", "make_float2(0.f, 0.f)")],
+    "knockout: the gate and d_radial passes": [
+        f32_sub("      {\n        const float2 bg1 = load2(sLW, LW_BG1 * H + k0);",
+                "      if (fe < 0) {\n        const float2 bg1 = load2(sLW, LW_BG1 * H + k0);"),
+        f32_sub("      {\n        const float2 w1r = load2(sLW, LW_W1R * H + k0);\n        float2 gb2",
+                "      if (fe < 0) {\n        const float2 w1r = load2(sLW, LW_W1R * H + k0);\n"
+                "        float2 gb2")],
+    "knockout: dUd row sums": [
+        f32_sub("for (int te = lo; te < hi; ++te) {", "for (int te = lo; te < lo; ++te) {")],
+    "knockout: src-role atomics": [
+        f32_sub("atomicAdd(reinterpret_cast<float2*>(dus + (long)s * H + k0), dz1[i]);", ""),
+        f32_sub("atomicAdd(dxs + 3 * s + lane, dd);", "")],
+    "knockout: the per-feature weight-gradient sums": [
+        f32_sub("  atomicAdd(row + lane, v.x);\n  atomicAdd(row + 32 + lane, v.y);\n", "")],
+    "knockout: the dw flush": [
+        f32_sub("  {  // ---- this block's weight grads into dw, once ----", "  if (fe < 0) {")],
 }
 
 EDGE_FWD: Dict[str, List[Edit]] = {
@@ -206,39 +278,49 @@ def edge_inputs(g):
     return gen, h, (W1, b1, W2, b2, Wg1, bg1, wg2)
 
 
-def edge_bwd_lab(g) -> None:
-    libs = build("edge_block", EDGE_BWD, "bwd")
+def edge_bwd_lab(g, f32_variants: Dict[str, List[Edit]] = EDGE_BWD_F32) -> None:
+    """The backward's variants, f32 (``edge_bwd_kernel``) and bf16
+    (``edge_bwd_tc_kernel``), on the graph ``g``, built in one parallel pass."""
+    built = build("edge_block", {**{f"f32: {k}": v for k, v in f32_variants.items()},
+                                 **{f"bf16: {k}": v for k, v in EDGE_BWD.items()}}, "bwd")
     gen, h, (W1, b1, W2, b2, Wg1, bg1, wg2) = edge_inputs(g)
     dev, H = g.device, ek.H
     n, fe = g.num_nodes, g.edge_attr.shape[1]
-    dms = ek._rnd(torch.randn(n, H, generator=gen).to(dev), True).contiguous()
-    dts = ek._rnd(torch.randn(n, 3, generator=gen).to(dev), True).contiguous()
-    ud, us = ek.build_tables(h, W1, b1, True)
-    wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, True)
-    want = ek.edge_block_bwd_plain(ud, us, g.coord, g.rowptr, g.src, g.dst, g.edge_attr,
-                                   wpack, dms, dts, True)
+    dms0 = torch.randn(n, H, generator=gen).to(dev)
+    dts0 = torch.randn(n, 3, generator=gen).to(dev)
     outs = [torch.zeros(shape, device=dev) for shape in
             ((n, H), (n, H), (n, 3), (n, 3), (ek.PACK_ROWS, H))]
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (ud, us, g.coord, g.rowptr, g.src, g.dst, g.edge_attr)
-    for name, (lib, report) in libs.items():
-        fn = lib.fastegnn_edge_bwd
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+    for bf16 in (False, True):
+        mode, kernel = ("bf16", "edge_bwd_tc_kernel") if bf16 else ("f32", "edge_bwd_kernel")
+        dms = ek._rnd(dms0, bf16).contiguous()
+        dts = ek._rnd(dts0, bf16).contiguous()
+        ud, us = ek.build_tables(h, W1, b1, bf16)
+        wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, bf16)
+        want = ek.edge_block_bwd_plain(ud, us, g.coord, g.rowptr, g.src, g.dst, g.edge_attr,
+                                       wpack, dms, dts, bf16)
+        ptrs = (ud, us, g.coord, g.rowptr, g.src, g.dst, g.edge_attr)
+        for label, (lib, report) in built.items():
+            if not label.startswith(mode + ": "):
+                continue
+            fn = lib.fastegnn_edge_bwd
+            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] + \
+                [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
 
-        def call():
-            for o in outs:   # the wrapper zeroes its outputs too
-                o.zero_()
-            return fn(1, *(t.data_ptr() for t in ptrs), fe, wpack.data_ptr(), dms.data_ptr(),
-                      dts.data_ptr(), *(o.data_ptr() for o in outs), n, stream)
+            def call():
+                for o in outs:   # the wrapper zeroes its outputs too
+                    o.zero_()
+                return fn(int(bf16), *(t.data_ptr() for t in ptrs), fe, wpack.data_ptr(),
+                          dms.data_ptr(), dts.data_ptr(), *(o.data_ptr() for o in outs), n,
+                          stream)
 
-        if call() != 0:
-            raise RuntimeError(f"edge_block variant {name!r} failed to launch")
-        torch.cuda.synchronize()
-        err = rel_err((outs[0], outs[1], outs[2] - outs[3], outs[4]), want)
-        ms = median_ms(call)
-        print(f"[lab] edge_block_bwd bf16: {name}: {ms:.4f} ms (err {err:.1e}) "
-              f"[{resources(report, 'edge_bwd_tc_kernel')}]", flush=True)
+            if call() != 0:
+                raise RuntimeError(f"edge_block variant {label!r} failed to launch")
+            torch.cuda.synchronize()
+            err = rel_err((outs[0], outs[1], outs[2] - outs[3], outs[4]), want)
+            ms = median_ms(call)
+            print(f"[lab] edge_block_bwd {label}: {ms:.4f} ms (err {err:.1e}) "
+                  f"[{resources(report, kernel)}]", flush=True)
 
 
 def edge_fwd_lab(g) -> None:

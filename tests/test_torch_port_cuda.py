@@ -104,25 +104,30 @@ def _ragged_csr(rng, n, long_row, long_deg, empty):
     return deg, np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
 
 
-def _ragged_edge_block_inputs(cuda, bf16, fe):
-    """Inputs of the edge kernels at the edges of both blockings: the f32
-    backward's 16-row blocks of 32-edge tiles and the bf16 kernels' 4-row
-    blocks of 64-edge tiles.  A hub row of 150 edges spans several tiles of
-    either and shares its last tile with the next rows; rows 16..31 (a whole
-    block of either) and a few more have no edges; blocks end in a partly
-    empty tile; the last bf16 block has 2 rows; a padded tail past rowptr[N]
-    (edge attributes 9) must not be read.  Returns the generator for more
-    draws and ``(ud, us, x, rowptr, src, dst, ea, wpack)``."""
+# the blockings of csrc/edge_block.cu: the f32 backward walks ranges of
+# F32_ROWS dst rows in tiles of F32_TE edges (BWD_ROWS, TE), the bf16 kernels
+# blocks of 4 rows in tiles of 64 edges (TC_ROWS, TC_TE)
+F32_ROWS, F32_TE, TC_ROWS, TC_TE = 8, 48, 4, 64
+
+
+def _ragged_edge_block_inputs(cuda, bf16, fe, n=70, long_deg=150,
+                              empty=(*range(16, 32), 40, 41, 69), fan_src=None):
+    """Inputs of the edge kernels at the edges of both blockings.  By default
+    a hub row of 150 edges spans several tiles of either and shares its last
+    tile with the next rows; rows 16..31 (a whole range or block of either)
+    and a few more have no edges; ranges end in a partly filled tile; the
+    last bf16 block has 2 rows; a padded tail past rowptr[N] (edge
+    attributes 9) must not be read.  With ``fan_src``, that node is the src
+    of every row's first edge.  Returns the generator for more draws and
+    ``(ud, us, x, rowptr, src, dst, ea, wpack)``."""
     rng = np.random.default_rng(fe)
-    n, pad = 70, 9
-    deg, rowptr = _ragged_csr(rng, n, 5, 150, [*range(16, 32), 40, 41, 69])
+    pad = 9
+    deg, rowptr = _ragged_csr(rng, n, 5, long_deg, list(empty))
     e = int(rowptr[-1])
-    assert e % 32 and (rowptr[48] - rowptr[32]) % 32 and rowptr[16] - rowptr[0] > 4 * 32
-    assert rowptr[20] == rowptr[16] and n % 4 == 2
-    assert (rowptr[8] - rowptr[4]) % 64 and rowptr[8] - rowptr[4] > 2 * 64
-    assert (rowptr[36] - rowptr[32]) % 64 and rowptr[36] > rowptr[32]
     dst = np.concatenate([np.repeat(np.arange(n), deg), np.full(pad, n)]).astype(np.int32)
     src = np.concatenate([rng.integers(0, n, e), np.zeros(pad)]).astype(np.int32)
+    if fan_src is not None:
+        src[rowptr[:-1][deg > 0]] = fan_src
     ea = np.concatenate([rng.normal(size=(e, fe)), np.full((pad, fe), 9.0)]).astype(np.float32)
     t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
     x = t(rng.normal(size=(n, 3)).astype(np.float32))
@@ -134,14 +139,68 @@ def _ragged_edge_block_inputs(cuda, bf16, fe):
     return rng, (ud, us, x, t(rowptr), t(src), t(dst), t(ea), wpack)
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("fe", [0, 1, 3])
-def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
-    rng, (ud, us, x, rowptr, src, dst, ea, wpack) = _ragged_edge_block_inputs(cuda, bf16, fe)
+def _check_blockings(rowptr):
+    """The default geometry of ``_ragged_edge_block_inputs`` against both
+    blockings."""
+    rowptr = rowptr.cpu().numpy()
+    r, t = F32_ROWS, F32_TE
+    # the f32 backward: the hub's range spans several tiles and ends in a
+    # partly filled one, the third range is empty, later ones and the last
+    # (6 rows) end in partly filled tiles
+    n = len(rowptr) - 1
+    assert rowptr[r] - rowptr[0] > 3 * t and (rowptr[r] - rowptr[0]) % t
+    assert rowptr[3 * r] == rowptr[2 * r]
+    assert (rowptr[5 * r] - rowptr[4 * r]) % t and (rowptr[n] - rowptr[n - n % r]) % t
+    # the bf16 kernels: the hub's block spans more than two tiles; an empty
+    # block; the last block has 2 rows
+    b, tc = TC_ROWS, TC_TE
+    assert (rowptr[2 * b] - rowptr[b]) % tc and rowptr[2 * b] - rowptr[b] > 2 * tc
+    assert rowptr[20] == rowptr[16] and n % b == 2
+    assert (rowptr[36] - rowptr[32]) % tc and rowptr[36] > rowptr[32]
+
+
+def _bwd_args(cuda, bf16, fe, **geometry):
+    rng, (ud, us, x, rowptr, src, dst, ea, wpack) = _ragged_edge_block_inputs(
+        cuda, bf16, fe, **geometry)
     n = x.shape[0]
     dms = ek._rnd(torch.tensor(rng.normal(size=(n, H)).astype(np.float32), device=cuda), bf16)
     dts = ek._rnd(torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda), bf16)
-    args = (ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)
+    return (ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_edge_block_bwd_src_node_feeding_many_blocks(cuda, bf16):
+    # 6000 rows: more ranges than the f32 backward's persistent grid has
+    # blocks (2 per SM), so blocks walk several ranges; node 7 is the src of
+    # every row's first edge, so its dUs and dx rows take atomics from every
+    # block
+    args = _bwd_args(cuda, bf16, 2, n=6000, long_deg=300, empty=range(100, 140), fan_src=7)
+    got = ek.edge_block_bwd(*args)
+    torch.cuda.synchronize()
+    want = ek.edge_block_bwd_plain(*args)
+    for name, a, b in zip(("dUd", "dUs", "dx", "dw"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max(), name
+    for a, b in ((got[1][7], want[1][7]), (got[2][7], want[2][7])):
+        assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max()
+    assert (got[0][100:140] == 0).all()
+
+
+def test_f32_edge_block_bwd_dud_is_deterministic(cuda):
+    # dUd rows are each stored once by the block that owns them, in a fixed
+    # order: two calls agree bit for bit (the atomics' sums need not)
+    args = _bwd_args(cuda, False, 3, n=3000, long_deg=400, empty=range(50, 80))
+    first = ek.edge_block_bwd(*args)
+    second = ek.edge_block_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fe", [0, 1, 3])
+def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
+    args = _bwd_args(cuda, bf16, fe)
+    _check_blockings(args[3])
     before = ek.BWD_LAUNCHES
     got = ek.edge_block_bwd(*args)
     torch.cuda.synchronize()
@@ -160,6 +219,7 @@ def test_edge_block_fwd_at_tile_boundaries(cuda, bf16, fe):
     # every row, empty or not, must be written by the kernel; no atomics, so
     # two calls agree bit for bit
     _, (ud, us, x, rowptr, src, _, ea, wpack) = _ragged_edge_block_inputs(cuda, bf16, fe)
+    _check_blockings(rowptr)
     args = (ud, us, x, rowptr, src, ea, wpack, bf16)
     before = ek.FWD_LAUNCHES
     got = ek.edge_block_fwd(*args)
