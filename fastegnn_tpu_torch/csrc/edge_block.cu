@@ -60,43 +60,64 @@
 //
 // f32 mode stays on the CUDA cores as exact FP32 FMAs: the only f32
 // tensor-core path, TF32, rounds the operands to 10 mantissa bits and would
-// break the f32 contract.
-// - forward in f32 (edge_fwd_kernel): one warp per dst row walks
-//   rowptr[row]..rowptr[row+1]; each lane owns two of the 64 features; W2 and
-//   Wg1 sit in shared memory; the row's sums stay in registers and are
-//   written once (no atomics, deterministic); one edge per warp at a time,
-//   ~100x above the bound (PERF.md).
+// break the f32 contract.  Both f32 kernels are bound by operations at the
+// FP32 rate, 67 TFLOP/s, and held back by shared memory: it delivers 128 bytes
+// of operands per clock per SM, a broadcast counting once per lane, and the
+// FP32 rate needs 4 FMAs per float loaded.  One edge per warp, each product a
+// matvec, gave ~1.6 FMAs per float.  So each kernel walks ranges of dst rows
+// in tiles of edges and runs the chain products as products of whole tiles
+// (f32_product): each thread keeps RE x RF sums in registers and reads the
+// edge rows as float4s along k, so a product loads RE + RF floats per RE RF
+// FMAs (a warp spans 4 edge rows x 8 feature groups, rows padded to LDT, so no
+// load conflicts).  A product with W^T reads W's rows along k as the A operand
+// is read, so no transposed copy is kept.  Stage 1 (f32_stage1, shared by both
+// kernels) runs one warp per edge row without branches: the src and dst rows,
+// x_d - x_s, the radial, the edge attributes, z1 and a1 = silu(z1).  Exact
+// logistic (expf, IEEE division) throughout.
+// - forward in f32 (edge_fwd_kernel) replaces edge_kernel_v5.py::_fwd_kernel
+//   (:467) with its body _chain_fwd (:408).  Two 64x64 products per edge
+//   (a1 W2, m Wg1) and no weight gradients, so it runs more warps per SM
+//   than the backward: one block per range of FWD32_ROWS = 8 rows, tiles of
+//   FWD32_TE = 64 edges in 4 x 4 register tiles (2 FMAs per float loaded), 3
+//   blocks of 8 warps per SM (80 registers, ~72 KB of shared memory each: W2,
+//   Wg1 and two [TE][LDT] tiles).  A persistent grid fed from a counter, as
+//   the backward's, was no faster: the forward has no weight-gradient flush
+//   to amortise over ranges.  Larger register tiles at 2 blocks per SM (6 x 4
+//   over 96 edges, 2.4 FMAs per float) feed the products better but leave
+//   fewer warps to hide the sigmoids, the gathers and the barriers, and lost
+//   (scripts/torch_kernel_lab.py, PERF.md).  Per tile: stage 1; z2 = a1 W2
+//   with m = silu(z2 + b2) in its epilogue; m Wg1 into a1's tile; then one
+//   warp per edge row takes zg = m Wg1 + bg1 and the gate silu(zg) . wg2
+//   (warp reductions of the warp's rows interleaved) and adds (x_d - x_s)
+//   gate to its own t_sum rows in shared memory, and each thread adds m over
+//   its own row's edges in the tile to a few features of that row in
+//   registers.  After the range each m_sum row is stored once by its owner
+//   and each t_sum row as the fixed-order sum of the per-warp rows: no
+//   atomics, deterministic, and every row written, empty rows and ranges
+//   as zeros (the outputs are not zeroed before the launch).
 // - backward in f32 (edge_bwd_kernel) replaces edge_kernel_v5.py::_bwd_kernel
-//   (:503) with its body _chain_bwd (:438).  Its six 64x64 products per edge
-//   (the recompute's a1 W2 and m Wg1, then d_zg Wg1^T, d_z2 W2^T, and the
-//   weight gradients a1^T d_z2, m^T d_zg) set its bound at the FP32 rate, 67
-//   TFLOP/s.  What holds it is shared memory: it delivers 128 bytes of
-//   operands per clock per SM, a broadcast counting once per lane, and the
-//   FP32 rate needs 4 FMAs per float loaded.  One edge per warp, each
-//   product a matvec, gave ~1.6 FMAs per float.  So the block walks its dst
-//   rows' edges in tiles of TE and runs the four chain products as products
-//   of whole tiles (f32_product): each thread keeps RE x RF sums in
-//   registers (6 edges x 2 features) and reads the edge rows as float4s
-//   along k, 12 FMAs for 8 floats (a warp spans 4 edge rows x 8 feature
-//   groups, rows padded to LDT, so no load conflicts).  A product with W^T
-//   reads W's rows along k as the A operand is read, so no transposed copy
-//   is kept.  Between products one warp per edge row runs the elementwise
-//   chain without branches (z1; the gate and d_zg; d_radial and the
-//   src-role atomics; each warp's per-feature weight-gradient sums go to
-//   shared memory once per pass), and the product epilogues apply the rest
-//   in place: dsilu(z2) and dsilu(z1) are stored when the sigmoid is taken
-//   and become d_z2 and d_z1; m Wg1 becomes d_zg.  Three exact logistics per feature per edge, as before.  Phase 2
+//   (:503) with its body _chain_bwd (:438).  Six 64x64 products per edge (the
+//   recompute's a1 W2 and m Wg1, then d_zg Wg1^T, d_z2 W2^T, and the weight
+//   gradients a1^T d_z2, m^T d_zg), the four chain products over tiles of
+//   TE = 48 edges in 6 x 2 register tiles (1.5 FMAs per float).  Between
+//   products one warp per edge row runs the elementwise chain without
+//   branches (the gate and d_zg; d_radial and the src-role atomics; each
+//   warp's per-feature weight-gradient sums go to shared memory once per
+//   pass), and the product epilogues apply the rest in place: dsilu(z2) and
+//   dsilu(z1) are stored when the sigmoid is taken and become d_z2 and d_z1;
+//   m Wg1 becomes d_zg.  Three exact logistics per feature per edge.  Phase 2
 //   accumulates dW2 += a1^T d_z2 and dWg1 += m^T d_zg in 4 x BWD_DWC
 //   register tiles, and each thread the dUd sums of one row over that row's
 //   edges in the tile (stored once, no atomics, deterministic); dx_dst goes
 //   to per-warp row sums combined in a fixed order; dUs and dx_src go out
 //   with f32 atomics.  A persistent grid of BWD_BLOCKS blocks per SM takes
-//   ranges of BWD_ROWS rows from a counter, so the SMs stay balanced and
-//   each block adds its weight gradients to dw once, at its end.  ~107 KB of shared memory per block (W2, Wg1 and
-//   five [TE][LDT] tiles) and at most 128 registers: 2 blocks per SM.  Larger
-//   register tiles need more registers or shared memory than 2 blocks of 8
-//   warps have, and fewer warps per SM lost more than they gained
-//   (scripts/torch_kernel_lab.py, PERF.md).
+//   ranges from a __device__ counter that the C entry zeroes on the stream
+//   before each launch (two launches must not overlap on two streams), so
+//   each block adds its weight gradients to dw once, at its end.  ~107 KB of shared memory per block
+//   (W2, Wg1 and five [TE][LDT] tiles) and at most 128 registers: 2 blocks
+//   per SM.  Larger register tiles need more registers or shared memory
+//   than 2 blocks of 8 warps have, and fewer warps per SM lost more than
+//   they gained (scripts/torch_kernel_lab.py, PERF.md).
 // The atomics make dUs, dx and dw vary in the last bits from run to run; dUd
 // and the forward are deterministic.
 //
@@ -141,9 +162,6 @@ constexpr int BWD_BLOCKS = 2;
 constexpr int BWD_PERSIST = 1;
 constexpr int BWD_THREADS = BWD_WARPS * 32;
 constexpr int LDT = H + 4;                      // f32 tile row stride
-constexpr int BWD_EG = BWD_PWARPS * 32 / BWD_FG;  // edge groups of the products
-constexpr int RF = H / BWD_FG;                  // features per thread
-constexpr int RE = TE / BWD_EG;                 // edges per thread
 constexpr int EPW = TE / BWD_WARPS;             // edge rows per warp, elementwise passes
 // edge rows a warp's elementwise passes run at once, their loads and
 // reductions interleaved; more than one spills registers at 2 blocks per SM
@@ -152,10 +170,7 @@ constexpr int DF = H * BWD_ROWS / BWD_THREADS;  // dUd features per thread
 constexpr int BWD_DWC = 4;                      // columns of a thread's dW2 / dWg1 tiles
 constexpr int DW_KG = H / BWD_DWC;              // column groups of the dW tiles
 constexpr int DWT = 16 * DW_KG;                 // threads that own dW tiles
-static_assert(BWD_FG % 8 == 0 && BWD_PWARPS % (BWD_FG / 8) == 0 && RF % 2 == 0 &&
-                  BWD_PWARPS <= BWD_WARPS,
-              "f32_product: a warp spans 4 edge groups x 8 feature groups");
-static_assert(TE % BWD_EG == 0 && TE % BWD_WARPS == 0 && EPW <= 32 && EPW % PG == 0,
+static_assert(BWD_PWARPS <= BWD_WARPS && TE % BWD_WARPS == 0 && EPW <= 32 && EPW % PG == 0,
               "edges of a tile");
 static_assert(DF % 2 == 0 && BWD_THREADS % BWD_ROWS == 0, "dUd: float2s of one row per thread");
 static_assert(BWD_DWC % 4 == 0 && DW_KG % 8 == 0 && DWT <= BWD_THREADS,
@@ -165,6 +180,28 @@ constexpr size_t BWD_SMEM =
      BWD_WARPS * BWD_ROWS * 4) * sizeof(float) + (2 * TE + BWD_ROWS + 2) * sizeof(int);
 static_assert(BWD_BLOCKS * (BWD_SMEM + 1024) <= 228 * 1024,
               "BWD_BLOCKS f32 backward blocks fit in one SM's shared memory");
+// f32 forward: one block of FWD32_WARPS warps, all of which run the
+// products, per range of FWD32_ROWS dst rows, in tiles of FWD32_TE edges;
+// FWD32_FG feature groups in the products; FWD32_BLOCKS blocks per SM;
+// stage 1 on FWD32_PG edge rows at a time
+constexpr int FWD32_TE = 64;
+constexpr int FWD32_ROWS = 8;
+constexpr int FWD32_WARPS = 8;
+constexpr int FWD32_FG = 16;
+constexpr int FWD32_BLOCKS = 3;
+constexpr int FWD32_PG = 1;
+constexpr int FWD32_THREADS = FWD32_WARPS * 32;
+constexpr int FWD32_EPW = FWD32_TE / FWD32_WARPS;              // edge rows per warp
+constexpr int FWD32_DF = H * FWD32_ROWS / FWD32_THREADS;       // m_sum features per thread
+static_assert(FWD32_TE % FWD32_WARPS == 0 && FWD32_EPW <= 32 && FWD32_EPW % FWD32_PG == 0,
+              "edges of a forward tile");
+static_assert(FWD32_DF % 2 == 0 && FWD32_THREADS % FWD32_ROWS == 0,
+              "m_sum: float2s of one row per thread");
+constexpr size_t FWD32_SMEM =
+    (2 * H * LDT + 2 * FWD32_TE * LDT + LW_ROWS * H + FWD32_ROWS * 4 + FWD32_TE * 4 +
+     FWD32_WARPS * FWD32_ROWS * 4) * sizeof(float) + (FWD32_TE + FWD32_ROWS + 1) * sizeof(int);
+static_assert(FWD32_BLOCKS * (FWD32_SMEM + 1024) <= 228 * 1024,
+              "FWD32_BLOCKS f32 forward blocks fit in one SM's shared memory");
 
 // round to bf16 and back
 __device__ __forceinline__ float rnd(float v) {
@@ -197,135 +234,8 @@ __device__ __forceinline__ float pick3(const float* a, int i) {
   return i == 0 ? a[0] : (i == 1 ? a[1] : a[2]);
 }
 
-// Columns k0, k0 + 1 of v[0:64] @ W for W [64][64] ([in][out], row-major);
-// v and W in shared memory.
-__device__ __forceinline__ float2 matvec(const float* v, const float* W, int k0) {
-  float2 acc = make_float2(0.f, 0.f);
-#pragma unroll 4
-  for (int j = 0; j < H; j += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(v + j);
-    const float2 w0 = *reinterpret_cast<const float2*>(W + (j + 0) * H + k0);
-    const float2 w1 = *reinterpret_cast<const float2*>(W + (j + 1) * H + k0);
-    const float2 w2 = *reinterpret_cast<const float2*>(W + (j + 2) * H + k0);
-    const float2 w3 = *reinterpret_cast<const float2*>(W + (j + 3) * H + k0);
-    acc.x += a.x * w0.x; acc.y += a.x * w0.y;
-    acc.x += a.y * w1.x; acc.y += a.y * w1.y;
-    acc.x += a.z * w2.x; acc.y += a.z * w2.y;
-    acc.x += a.w * w3.x; acc.y += a.w * w3.y;
-  }
-  return acc;
-}
-
-// The per-feature weights a lane needs, for its features k0, k0 + 1.
-struct LaneW {
-  float2 w1r, wg2, b2, bg1;
-  float2 w1e[FE_MAX];
-};
-
-__device__ __forceinline__ LaneW load_lane_weights(const float* wpack, int k0, int fe) {
-  LaneW w;
-  w.w1r = load2(wpack, ROW_W1R * H + k0);
-  w.wg2 = load2(wpack, ROW_WG2 * H + k0);
-  w.b2 = load2(wpack, ROW_B2 * H + k0);
-  w.bg1 = load2(wpack, ROW_BG1 * H + k0);
-#pragma unroll
-  for (int f = 0; f < FE_MAX; ++f)
-    w.w1e[f] = f < fe ? load2(wpack, (ROW_W1E + f) * H + k0) : make_float2(0.f, 0.f);
-  return w;
-}
-
-// One edge's forward chain, as seen by one lane.
-struct Chain {
-  float2 z1, s1, a1, z2, s2, m, zg, sg, g1;
-  float diff[3];
-  float radial, gate;
-  float ea[FE_MAX];
-};
-
-// The f32 chain of edge (d, s), for the f32 forward.  bufA /
-// bufM are this warp's 64-float shared buffers for a1 and m (the operands of
-// the two chain products); the caller synchronises the warp before a buffer
-// is reused.
-__device__ __forceinline__ void chain_fwd(Chain& c, float2 ud, const float* __restrict__ us,
-                                          int s, const float* __restrict__ x,
-                                          const float* xd, const float* __restrict__ ea_row,
-                                          int fe, const LaneW& w, const float* sW2,
-                                          const float* sWg1, float* bufA, float* bufM,
-                                          int k0) {
-  c.diff[0] = xd[0] - x[3 * s];
-  c.diff[1] = xd[1] - x[3 * s + 1];
-  c.diff[2] = xd[2] - x[3 * s + 2];
-  c.radial = c.diff[0] * c.diff[0] + c.diff[1] * c.diff[1] + c.diff[2] * c.diff[2];
-  const float2 u = load2(us, (long)s * H + k0);
-  float2 eterm = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int f = 0; f < FE_MAX; ++f) {
-    c.ea[f] = f < fe ? ea_row[f] : 0.f;
-    eterm.x += c.ea[f] * w.w1e[f].x;
-    eterm.y += c.ea[f] * w.w1e[f].y;
-  }
-  c.z1 = make_float2((ud.x + u.x) + c.radial * w.w1r.x + eterm.x,
-                     (ud.y + u.y) + c.radial * w.w1r.y + eterm.y);
-  c.s1 = make_float2(sigmoid(c.z1.x), sigmoid(c.z1.y));
-  c.a1 = make_float2(c.z1.x * c.s1.x, c.z1.y * c.s1.y);
-  bufA[k0] = c.a1.x;
-  bufA[k0 + 1] = c.a1.y;
-  __syncwarp();
-  float2 t = matvec(bufA, sW2, k0);
-  c.z2 = make_float2(t.x + w.b2.x, t.y + w.b2.y);
-  c.s2 = make_float2(sigmoid(c.z2.x), sigmoid(c.z2.y));
-  c.m = make_float2(c.z2.x * c.s2.x, c.z2.y * c.s2.y);
-  bufM[k0] = c.m.x;
-  bufM[k0 + 1] = c.m.y;
-  __syncwarp();
-  t = matvec(bufM, sWg1, k0);
-  c.zg = make_float2(t.x + w.bg1.x, t.y + w.bg1.y);
-  c.sg = make_float2(sigmoid(c.zg.x), sigmoid(c.zg.y));
-  c.g1 = make_float2(c.zg.x * c.sg.x, c.zg.y * c.sg.y);
-  c.gate = warp_sum(c.g1.x * w.wg2.x + c.g1.y * w.wg2.y);
-}
-
-__global__ void __launch_bounds__(THREADS)
-edge_fwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
-                const float* __restrict__ x, const int* __restrict__ rowptr,
-                const int* __restrict__ src, const float* __restrict__ ea, int fe,
-                const float* __restrict__ wpack, float* __restrict__ msum,
-                float* __restrict__ tsum, int n) {
-  __shared__ __align__(16) float sW2[H * H];
-  __shared__ __align__(16) float sWg1[H * H];
-  __shared__ __align__(16) float sbuf[WARPS][2][H];
-  for (int i = threadIdx.x; i < H * H; i += THREADS) {
-    sW2[i] = wpack[ROW_W2 * H + i];
-    sWg1[i] = wpack[ROW_WG1 * H + i];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, k0 = 2 * lane;
-  const LaneW w = load_lane_weights(wpack, k0, fe);
-  float* bufA = sbuf[warp][0];
-  float* bufM = sbuf[warp][1];
-  for (int row = blockIdx.x * WARPS + warp; row < n; row += gridDim.x * WARPS) {
-    const int e0 = rowptr[row], e1 = rowptr[row + 1];
-    const float2 udr = load2(ud, (long)row * H + k0);
-    const float xd[3] = {x[3 * row], x[3 * row + 1], x[3 * row + 2]};
-    float2 accm = make_float2(0.f, 0.f);
-    float acct[3] = {0.f, 0.f, 0.f};
-    for (int e = e0; e < e1; ++e) {
-      Chain c;
-      __syncwarp();
-      chain_fwd(c, udr, us, src[e], x, xd, ea + (long)e * fe, fe, w, sW2, sWg1, bufA, bufM,
-                k0);
-      accm.x += c.m.x;
-      accm.y += c.m.y;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) acct[k] += c.diff[k] * c.gate;
-    }
-    *reinterpret_cast<float2*>(msum + (long)row * H + k0) = accm;
-    if (lane < 3) tsum[3 * row + lane] = pick3(acct, lane);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// f32 backward: register-tiled FP32 products over tiles of edges
+// f32 tile stages: register-tiled FP32 products over tiles of edges
 // ---------------------------------------------------------------------------
 
 // A lane's features 2 lane, 2 lane + 1 of v added to a row of 64 sums in
@@ -336,7 +246,7 @@ __device__ __forceinline__ void add2(float* row, int lane, float2 v) {
   atomicAdd(row + 32 + lane, v.y);
 }
 
-// the f32 backward's logistic: exact (expf, IEEE division)
+// the f32 kernels' logistic: exact (expf, IEEE division)
 __device__ __forceinline__ float sig_f32(float z) { return sigmoid(z); }
 
 template <int N>
@@ -356,10 +266,12 @@ __device__ __forceinline__ void load_row(const float* p, float* v) {
   }
 }
 
-// Feature j of thread group ng in X @ W: float4s of a W row 4 BWD_FG apart
-// (RF a multiple of 4), else RF consecutive features.
+// Feature j of thread group ng of FG in X @ W: float4s of a W row 4 FG apart
+// (H / FG a multiple of 4), else H / FG consecutive features.
+template <int FG>
 __device__ __forceinline__ int nt_feature(int ng, int j) {
-  return RF % 4 == 0 ? 4 * ng + (j & 3) + (j >> 2) * 4 * BWD_FG : RF * ng + j;
+  constexpr int RF = H / FG;
+  return RF % 4 == 0 ? 4 * ng + (j & 3) + (j >> 2) * 4 * FG : RF * ng + j;
 }
 
 // Column c of a dW tile of column group kg: float4s 4 DW_KG apart.
@@ -367,20 +279,24 @@ __device__ __forceinline__ int dw_col(int kg, int c) {
   return 4 * kg + (c & 3) + (c >> 2) * 4 * DW_KG;
 }
 
-// Out = X @ W (TRANS false) or X @ W^T (TRANS true) over one tile of edges,
-// in exact f32 on the CUDA cores: X [TE][LDT] and W [H][LDT] ([in][out]) in
-// shared memory.  Thread (eg, ng) keeps RE x RF sums in registers, for edges
-// eg + BWD_EG i and features nt_feature(ng, j) (X @ W: float4s of a W row
-// per k) or ng + BWD_FG j (X @ W^T: a float4 of W row ng + BWD_FG j per
-// 4 k, W's rows read along k as X's are).  A warp spans 4 edge groups x 8
-// feature groups, so each load is one shared-memory wavefront.  Every sum
-// goes to epi(edge, feature, sum).  The first BWD_PWARPS warps run it.
-template <bool TRANS, class Epi>
+// Out = X @ W (TRANS false) or X @ W^T (TRANS true) over one tile of TE_
+// edges, in exact f32 on the CUDA cores: X [TE_][LDT] and W [H][LDT]
+// ([in][out]) in shared memory.  The first PW warps run it, as EG = 32 PW /
+// FG edge groups x FG feature groups: thread (eg, ng) keeps RE x RF sums in
+// registers (RE = TE_ / EG, RF = H / FG), for edges eg + EG i and features
+// nt_feature(ng, j) (X @ W: float4s of a W row per k) or ng + FG j (X @ W^T:
+// a float4 of W row ng + FG j per 4 k, W's rows read along k as X's are).  A
+// warp spans 4 edge groups x 8 feature groups, so each load is one
+// shared-memory wavefront.  Every sum goes to epi(edge, feature, sum).
+template <int TE_, int FG, int PW, bool TRANS, class Epi>
 __device__ __forceinline__ void f32_product(const float* X, const float* W, Epi epi) {
+  constexpr int EG = PW * 32 / FG, RE = TE_ / EG, RF = H / FG;
+  static_assert(FG % 8 == 0 && PW % (FG / 8) == 0 && RF % 2 == 0 && TE_ % EG == 0,
+                "f32_product: a warp spans 4 edge groups x 8 feature groups");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp >= BWD_PWARPS) return;
-  const int ng = (warp % (BWD_FG / 8)) * 8 + (lane & 7);
-  const int eg = (warp / (BWD_FG / 8)) * 4 + (lane >> 3);
+  if (warp >= PW) return;
+  const int ng = (warp % (FG / 8)) * 8 + (lane & 7);
+  const int eg = (warp / (FG / 8)) * 4 + (lane >> 3);
   float acc[RE][RF];
 #pragma unroll
   for (int i = 0; i < RE; ++i)
@@ -390,12 +306,12 @@ __device__ __forceinline__ void f32_product(const float* X, const float* W, Epi 
   for (int k = 0; k < H; k += 4) {
     float a[RE][4];
 #pragma unroll
-    for (int i = 0; i < RE; ++i) load_row<4>(X + (eg + BWD_EG * i) * LDT + k, a[i]);
+    for (int i = 0; i < RE; ++i) load_row<4>(X + (eg + EG * i) * LDT + k, a[i]);
     if constexpr (TRANS) {
 #pragma unroll
       for (int j = 0; j < RF; ++j) {
         float b[4];
-        load_row<4>(W + (ng + BWD_FG * j) * LDT + k, b);
+        load_row<4>(W + (ng + FG * j) * LDT + k, b);
 #pragma unroll
         for (int i = 0; i < RE; ++i)
 #pragma unroll
@@ -407,7 +323,8 @@ __device__ __forceinline__ void f32_product(const float* X, const float* W, Epi 
         float b[RF];
         if constexpr (RF % 4 == 0) {
 #pragma unroll
-          for (int j = 0; j < RF; j += 4) load_row<4>(W + (k + kk) * LDT + nt_feature(ng, j), b + j);
+          for (int j = 0; j < RF; j += 4)
+            load_row<4>(W + (k + kk) * LDT + nt_feature<FG>(ng, j), b + j);
         } else {
           load_row<RF>(W + (k + kk) * LDT + RF * ng, b);
         }
@@ -422,8 +339,106 @@ __device__ __forceinline__ void f32_product(const float* X, const float* W, Epi 
   for (int i = 0; i < RE; ++i)
 #pragma unroll
     for (int j = 0; j < RF; ++j)
-      epi(eg + BWD_EG * i, TRANS ? ng + BWD_FG * j : nt_feature(ng, j), acc[i][j]);
+      epi(eg + EG * i, TRANS ? ng + FG * j : nt_feature<FG>(ng, j), acc[i][j]);
 }
+
+// The f32 kernels' weights into shared memory, by the block's THREADS_
+// threads: W2 and Wg1 as [H][LDT], the per-feature weights as sLW [LW_ROWS][H]
+// (edge-attribute rows past fe zero).
+template <int THREADS_>
+__device__ __forceinline__ void f32_weights(const float* __restrict__ wpack, int fe, float* sW2,
+                                            float* sWg1, float* sLW) {
+  for (int i = threadIdx.x; i < H * H; i += THREADS_) {
+    const int j = i / H, k = i % H;
+    sW2[j * LDT + k] = wpack[ROW_W2 * H + i];
+    sWg1[j * LDT + k] = wpack[ROW_WG1 * H + i];
+  }
+  for (int i = threadIdx.x; i < LW_ROWS * H; i += THREADS_) {
+    const int row = i / H, k = i % H;
+    const int from = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
+                     : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
+                     : ROW_W1E + row - LW_W1E;
+    sLW[i] = row < LW_W1E || row - LW_W1E < fe ? wpack[from * H + k] : 0.f;
+  }
+}
+
+// Stage 1 of the f32 kernels over the tile of TE_ edges at t0 of a range
+// whose rows start at r0 and whose edges end at e1: one warp per edge row
+// (warp w owns rows w TE_ / WARPS_ ..), PG_ rows at a time, without branches,
+// so that their loads and chains overlap.  x_d - x_s and the radial go to
+// sDIFF, z1's a1 = silu(z1) to sA1, the dst row - r0 (-1 past e1) to sROW;
+// with BWD also dsilu(z1) to sD1, the src to sSRC and the edge attributes to
+// sEA.  Rows past e1 recompute its last edge and store zeros.  dst_of(e) is
+// edge e's dst node; sXD holds x of the range's rows, sLW the per-feature
+// weights.
+template <int TE_, int WARPS_, int PG_, bool BWD, class DstOf>
+__device__ __forceinline__ void f32_stage1(int t0, int e1, int r0, DstOf dst_of,
+                                           const float* __restrict__ ud,
+                                           const float* __restrict__ us,
+                                           const float* __restrict__ x,
+                                           const int* __restrict__ src,
+                                           const float* __restrict__ ea, int fe,
+                                           const float* sLW, const float* sXD, float* sA1,
+                                           float* sD1, float* sDIFF, float* sEA, int* sSRC,
+                                           int* sROW) {
+  constexpr int EPW_ = TE_ / WARPS_;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, k0 = 2 * lane;
+  const int el = min(t0 + warp * EPW_ + (lane < EPW_ ? lane : 0), e1 - 1);
+  const int s_l = src[el], d_l = dst_of(el);
+  const float2 w1r = load2(sLW, LW_W1R * H + k0);
+  float2 w1e[FE_MAX];
+#pragma unroll
+  for (int f = 0; f < FE_MAX; ++f) w1e[f] = load2(sLW, (LW_W1E + f) * H + k0);
+#pragma unroll
+  for (int g = 0; g < EPW_; g += PG_) {
+#pragma unroll
+    for (int i = g; i < g + PG_; ++i) {
+      const int te = warp * EPW_ + i, e = min(t0 + te, e1 - 1);
+      const bool live = t0 + te < e1;
+      const int s = __shfl_sync(0xffffffffu, s_l, i);
+      const int d = __shfl_sync(0xffffffffu, d_l, i);
+      const int r = d - r0;
+      float diff[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) diff[c] = sXD[4 * r + c] - x[3 * s + c];
+      const float radial = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+      const float2 u = load2(us, (long)s * H + k0);
+      const float2 udr = load2(ud, (long)d * H + k0);
+      float2 eterm = make_float2(0.f, 0.f);
+      float eav[FE_MAX];
+#pragma unroll
+      for (int f = 0; f < FE_MAX; ++f) {
+        eav[f] = f < fe ? ea[(long)e * fe + f] : 0.f;
+        eterm.x += eav[f] * w1e[f].x;
+        eterm.y += eav[f] * w1e[f].y;
+      }
+      const float2 z1 = make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
+                                    (udr.y + u.y) + radial * w1r.y + eterm.y);
+      const float2 s1 = make_float2(sig_f32(z1.x), sig_f32(z1.y));
+      const float2 a1 = live ? make_float2(z1.x * s1.x, z1.y * s1.y) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(sA1 + te * LDT + k0) = a1;
+      if constexpr (BWD) {
+        const float2 ds1 = live ? make_float2(dsilu(z1.x, s1.x), dsilu(z1.y, s1.y))
+                                : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(sD1 + te * LDT + k0) = ds1;
+      }
+      if (lane == 0) {
+        if constexpr (BWD) sSRC[te] = s;
+        sROW[te] = live ? r : -1;
+      }
+      if (lane < 3) {
+        sDIFF[4 * te + lane] = pick3(diff, lane);
+        if constexpr (BWD) sEA[4 * te + lane] = pick3(eav, lane);
+      } else if (lane == 3) {
+        sDIFF[4 * te + 3] = radial;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 backward: the chain recomputed, its gradients and the weight gradients
+// ---------------------------------------------------------------------------
 
 // the f32 backward's next row range, zeroed on the stream before each launch:
 // two launches of the kernel must not overlap on two streams
@@ -461,19 +476,8 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
   int* sRANGE = sRP + BWD_ROWS + 1;      // the block's current range
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, k0 = 2 * lane;
-  for (int i = tid; i < H * H; i += BWD_THREADS) {
-    const int j = i / H, k = i % H;
-    sW2[j * LDT + k] = wpack[ROW_W2 * H + i];
-    sWg1[j * LDT + k] = wpack[ROW_WG1 * H + i];
-  }
-  for (int i = tid; i < LW_ROWS * H; i += BWD_THREADS) {
-    const int row = i / H, k = i % H;
-    const int from = row == LW_W1R ? ROW_W1R : row == LW_WG2 ? ROW_WG2
-                     : row == LW_B2 ? ROW_B2 : row == LW_BG1 ? ROW_BG1
-                     : ROW_W1E + row - LW_W1E;
-    sLW[i] = row < LW_W1E || row - LW_W1E < fe ? wpack[from * H + k] : 0.f;
-    sGW[i] = 0.f;
-  }
+  f32_weights<BWD_THREADS>(wpack, fe, sW2, sWg1, sLW);
+  for (int i = tid; i < LW_ROWS * H; i += BWD_THREADS) sGW[i] = 0.f;
   // threads tid < DWT own a 4 x BWD_DWC tile of dW2 and one of dWg1: rows
   // 4 jg .., columns dw_col(kg, c); a warp spans 4 jg x 8 kg
   const int jg = (warp / (DW_KG / 8)) * 4 + (lane >> 3);
@@ -513,64 +517,14 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
     __syncthreads();
 
     for (int t0 = e0; t0 < e1; t0 += TE) {
-      // ---- per edge row: scalars, z1, a1 = silu(z1), dsilu(z1); PG rows at
-      // a time, without branches, so that their loads and chains overlap
-      // (rows past the range's last edge recompute it and store zeros) ----
-      {
-        const int el = min(t0 + warp * EPW + (lane < EPW ? lane : 0), e1 - 1);
-        const int s_l = src[el], d_l = dst[el];
-        const float2 w1r = load2(sLW, LW_W1R * H + k0);
-        float2 w1e[FE_MAX];
-#pragma unroll
-        for (int f = 0; f < FE_MAX; ++f) w1e[f] = load2(sLW, (LW_W1E + f) * H + k0);
-#pragma unroll
-        for (int g = 0; g < EPW; g += PG) {
-#pragma unroll
-          for (int i = g; i < g + PG; ++i) {
-            const int te = warp * EPW + i, e = min(t0 + te, e1 - 1);
-            const bool live = t0 + te < e1;
-            const int s = __shfl_sync(0xffffffffu, s_l, i);
-            const int d = __shfl_sync(0xffffffffu, d_l, i);
-            const int r = d - r0;
-            float diff[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) diff[c] = sXD[4 * r + c] - x[3 * s + c];
-            const float radial = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
-            const float2 u = load2(us, (long)s * H + k0);
-            const float2 udr = load2(ud, (long)d * H + k0);
-            float2 eterm = make_float2(0.f, 0.f);
-            float eav[FE_MAX];
-#pragma unroll
-            for (int f = 0; f < FE_MAX; ++f) {
-              eav[f] = f < fe ? ea[(long)e * fe + f] : 0.f;
-              eterm.x += eav[f] * w1e[f].x;
-              eterm.y += eav[f] * w1e[f].y;
-            }
-            const float2 z1 = make_float2((udr.x + u.x) + radial * w1r.x + eterm.x,
-                                          (udr.y + u.y) + radial * w1r.y + eterm.y);
-            const float2 s1 = make_float2(sig_f32(z1.x), sig_f32(z1.y));
-            const float2 a1 = live ? make_float2(z1.x * s1.x, z1.y * s1.y) : make_float2(0.f, 0.f);
-            const float2 ds1 = live ? make_float2(dsilu(z1.x, s1.x), dsilu(z1.y, s1.y))
-                                    : make_float2(0.f, 0.f);
-            *reinterpret_cast<float2*>(sA1 + te * LDT + k0) = a1;
-            *reinterpret_cast<float2*>(sD1 + te * LDT + k0) = ds1;
-            if (lane == 0) {
-              sSRC[te] = s;
-              sROW[te] = live ? r : -1;
-            }
-            if (lane < 3) {
-              sDIFF[4 * te + lane] = pick3(diff, lane);
-              sEA[4 * te + lane] = pick3(eav, lane);
-            } else if (lane == 3) {
-              sDIFF[4 * te + 3] = radial;
-            }
-          }
-        }
-      }
+      // ---- per edge row: scalars, z1, a1 = silu(z1), dsilu(z1) ----
+      f32_stage1<TE, BWD_WARPS, PG, true>(t0, e1, r0, [&](int e) { return dst[e]; }, ud, us, x,
+                                          src, ea, fe, sLW, sXD, sA1, sD1, sDIFF, sEA, sSRC,
+                                          sROW);
       __syncthreads();
 
       // ---- z2 = a1 W2 + b2: m = silu(z2) and dsilu(z2) ----
-      f32_product<false>(sA1, sW2, [&](int e, int k, float t) {
+      f32_product<TE, BWD_FG, BWD_PWARPS, false>(sA1, sW2, [&](int e, int k, float t) {
         const float z2 = t + sLW[LW_B2 * H + k];
         const float s2 = sig_f32(z2);
         sM[e * LDT + k] = sROW[e] >= 0 ? z2 * s2 : 0.f;
@@ -579,7 +533,8 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
       __syncthreads();
 
       // ---- m Wg1 ----
-      f32_product<false>(sM, sWg1, [&](int e, int k, float t) { sG[e * LDT + k] = t; });
+      f32_product<TE, BWD_FG, BWD_PWARPS, false>(sM, sWg1,
+                                                 [&](int e, int k, float t) { sG[e * LDT + k] = t; });
       __syncthreads();
 
       // ---- per edge row: zg = m Wg1 + bg1, the gate, d_zg over m Wg1; PG
@@ -626,7 +581,7 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
       __syncthreads();
 
       // ---- d_z2 = (dm + d_zg Wg1^T) dsilu(z2), over dsilu(z2) ----
-      f32_product<true>(sG, sWg1, [&](int e, int k, float t) {
+      f32_product<TE, BWD_FG, BWD_PWARPS, true>(sG, sWg1, [&](int e, int k, float t) {
         const int r = sROW[e];
         float& v = sD2[e * LDT + k];
         v = r >= 0 ? (sDM[r * H + k] + t) * v : 0.f;
@@ -634,7 +589,7 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
       __syncthreads();
 
       // ---- d_z1 = d_z2 W2^T dsilu(z1), over dsilu(z1) ----
-      f32_product<true>(sD2, sW2, [&](int e, int k, float t) {
+      f32_product<TE, BWD_FG, BWD_PWARPS, true>(sD2, sW2, [&](int e, int k, float t) {
         float& v = sD1[e * LDT + k];
         v = sROW[e] >= 0 ? t * v : 0.f;
       });
@@ -762,6 +717,138 @@ edge_bwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
                      : ROW_W1E + row - LW_W1E;
       atomicAdd(dw + to * H + 2 * (j & 31) + (j >> 5), sGW[i]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 forward: m_sum and t_sum over ranges of dst rows
+// ---------------------------------------------------------------------------
+
+// The largest power of two below n (1 for n <= 2).
+__host__ __device__ constexpr int pow2_below(int n) {
+  int p = 1;
+  while (2 * p < n) p *= 2;
+  return p;
+}
+
+__global__ void __launch_bounds__(FWD32_THREADS, FWD32_BLOCKS)
+edge_fwd_kernel(const float* __restrict__ ud, const float* __restrict__ us,
+                const float* __restrict__ x, const int* __restrict__ rowptr,
+                const int* __restrict__ src, const float* __restrict__ ea, int fe,
+                const float* __restrict__ wpack, float* __restrict__ msum,
+                float* __restrict__ tsum, int n) {
+  constexpr int ROWS = FWD32_ROWS, TE_ = FWD32_TE, EPW_ = FWD32_EPW, DF_ = FWD32_DF;
+  constexpr int TOP = pow2_below(ROWS);  // the first step of the search for an edge's row
+  extern __shared__ __align__(16) float smem[];
+  float* sW2 = smem;                     // [H][LDT]
+  float* sWg1 = sW2 + H * LDT;           // [H][LDT]
+  float* sA1 = sWg1 + H * LDT;           // [TE_][LDT] a1 = silu(z1), then m Wg1's epilogue
+  float* sM = sA1 + TE_ * LDT;           // [TE_][LDT] m = silu(z2)
+  float* sLW = sM + TE_ * LDT;           // [LW_ROWS][H] per-feature weights
+  float* sXD = sLW + LW_ROWS * H;        // [ROWS][4] x of the range's rows
+  float* sDIFF = sXD + ROWS * 4;         // [TE_][4] x_d - x_s, radial
+  float* sTS = sDIFF + TE_ * 4;          // [FWD32_WARPS][ROWS][4] per-warp t_sum rows
+  int* sROW = reinterpret_cast<int*>(sTS + FWD32_WARPS * ROWS * 4);  // [TE_] dst row - r0
+  int* sRP = sROW + TE_;                 // [ROWS + 1] rowptr[r0 ..]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, k0 = 2 * lane;
+  f32_weights<FWD32_THREADS>(wpack, fe, sW2, sWg1, sLW);
+  // this block's range of rows; this thread's m_sum row of it and its DF_ features
+  const int r0 = blockIdx.x * ROWS, nr = min(n - r0, ROWS);
+  const int drow = tid / (FWD32_THREADS / ROWS), df0 = (tid % (FWD32_THREADS / ROWS)) * DF_;
+  const int e0 = rowptr[r0], e1 = rowptr[r0 + nr];
+  // no early exit for a range without edges: the outputs come from
+  // torch.empty, so its rows are stored as zeros below
+  if (tid < ROWS * 4) {
+    const int r = tid >> 2, c = tid & 3;
+    sXD[tid] = r < nr && c < 3 ? x[3 * (r0 + r) + c] : 0.f;
+  }
+  if (tid <= nr) sRP[tid] = rowptr[r0 + tid];
+  for (int i = tid; i < FWD32_WARPS * ROWS * 4; i += FWD32_THREADS) sTS[i] = 0.f;
+  float macc[DF_];
+#pragma unroll
+  for (int f = 0; f < DF_; ++f) macc[f] = 0.f;
+  __syncthreads();
+
+  for (int t0 = e0; t0 < e1; t0 += TE_) {
+    // ---- per edge row: scalars, z1, a1 = silu(z1); the dst row of edge e
+    // is the last of the range's rows whose first edge is at or before e ----
+    f32_stage1<TE_, FWD32_WARPS, FWD32_PG, false>(
+        t0, e1, r0,
+        [&](int e) {
+          int r = 0;
+#pragma unroll
+          for (int step = TOP; step > 0; step >>= 1)
+            if (r + step < nr && sRP[r + step] <= e) r += step;
+          return r0 + r;
+        },
+        ud, us, x, src, ea, fe, sLW, sXD, sA1, nullptr, sDIFF, nullptr, nullptr, sROW);
+    __syncthreads();
+
+    // ---- z2 = a1 W2 + b2, m = silu(z2) (rows past the range's last edge
+    // are never summed) ----
+    f32_product<TE_, FWD32_FG, FWD32_WARPS, false>(sA1, sW2, [&](int e, int k, float t) {
+      const float z2 = t + sLW[LW_B2 * H + k];
+      sM[e * LDT + k] = z2 * sig_f32(z2);
+    });
+    __syncthreads();
+
+    // ---- m Wg1 over a1 ----
+    f32_product<TE_, FWD32_FG, FWD32_WARPS, false>(sM, sWg1, [&](int e, int k, float t) {
+      sA1[e * LDT + k] = t;
+    });
+    __syncthreads();
+
+    // ---- per edge row: the gate, its warp reductions interleaved over the
+    // warp's rows, and (x_d - x_s) gate into this warp's t_sum rows ----
+    {
+      float p[EPW_];
+#pragma unroll
+      for (int i = 0; i < EPW_; ++i) {
+        const float2 t = load2(sA1, (warp * EPW_ + i) * LDT + k0);
+        const float2 bg1 = load2(sLW, LW_BG1 * H + k0);
+        const float2 wg2 = load2(sLW, LW_WG2 * H + k0);
+        const float2 zg = make_float2(t.x + bg1.x, t.y + bg1.y);
+        p[i] = zg.x * sig_f32(zg.x) * wg2.x + zg.y * sig_f32(zg.y) * wg2.y;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < EPW_; ++i) p[i] += __shfl_xor_sync(0xffffffffu, p[i], o);
+      if (lane < 3) {
+#pragma unroll
+        for (int i = 0; i < EPW_; ++i) {
+          const int te = warp * EPW_ + i, r = sROW[te];
+          if (r >= 0) sTS[(warp * ROWS + r) * 4 + lane] += sDIFF[4 * te + lane] * p[i];
+        }
+      }
+    }
+    // ---- m_sum: this thread's row, over its edges in the tile (edges are
+    // dst-sorted, so a row's edges are contiguous) ----
+    if (drow < nr) {
+      const int lo = max(sRP[drow], t0) - t0, hi = min(sRP[drow + 1], t0 + TE_) - t0;
+      for (int te = lo; te < hi; ++te) {
+        float v[DF_];
+        load_row<DF_>(sM + te * LDT + df0, v);
+#pragma unroll
+        for (int f = 0; f < DF_; ++f) macc[f] += v[f];
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the range's m_sum and t_sum rows, each stored once ----
+  if (drow < nr) {
+#pragma unroll
+    for (int f = 0; f < DF_; f += 2)
+      *reinterpret_cast<float2*>(msum + (long)(r0 + drow) * H + df0 + f) =
+          make_float2(macc[f], macc[f + 1]);
+  }
+  if (tid < nr * 3) {
+    const int r = tid / 3, c = tid % 3;
+    float acc = 0.f;
+    for (int v = 0; v < FWD32_WARPS; ++v) acc += sTS[(v * ROWS + r) * 4 + c];
+    tsum[3 * r0 + tid] = acc;
   }
 }
 
@@ -1438,10 +1525,16 @@ extern "C" int fastegnn_edge_fwd(int bf16, const void* ud, const void* us,
     edge_fwd_tc_kernel<<<dim3((n + TC_ROWS - 1) / TC_ROWS), THREADS, FWD_SMEM, st>>>(
         static_cast<const __nv_bfloat16*>(ud), static_cast<const __nv_bfloat16*>(us), x,
         rowptr, src, ea, fe, wpack, msum, tsum, n);
-  } else {
-    edge_fwd_kernel<<<dim3((n + WARPS - 1) / WARPS), THREADS, 0, st>>>(
-        static_cast<const float*>(ud), static_cast<const float*>(us), x, rowptr, src, ea,
-        fe, wpack, msum, tsum, n);
+  } else {  // one block per range of FWD32_ROWS rows
+    cudaError_t err = cudaFuncSetAttribute(
+        edge_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD32_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(edge_fwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    edge_fwd_kernel<<<dim3((n + FWD32_ROWS - 1) / FWD32_ROWS), FWD32_THREADS, FWD32_SMEM,
+                      st>>>(static_cast<const float*>(ud), static_cast<const float*>(us), x,
+                            rowptr, src, ea, fe, wpack, msum, tsum, n);
   }
   return (int)cudaGetLastError();
 }

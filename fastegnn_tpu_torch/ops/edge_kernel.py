@@ -18,10 +18,11 @@ kernels (``csrc/edge_block.cu``; design and bound in its header) walk the
 dst CSR ``rowptr`` / ``src`` of the whole batch in one launch each and run
 the two 64x64 chain products in their bodies; in bf16 the forward and the
 backward run their products on the tensor cores, from shared stage code, so
-the backward recomputes the forward's chain bit for bit.  The f32 backward
-runs its chain and weight-gradient products as register-tiled FP32
-products over tiles of 48 edges, in a persistent grid of two blocks per SM
-that each add their weight gradients once.  The backward
+the backward recomputes the forward's chain bit for bit.  In f32 both run
+their products as register-tiled FP32 products over tiles of edges (64
+forward, 48 backward) of ranges of dst rows, from shared stage code: the
+forward one block per range, the backward a persistent grid of two blocks
+per SM that each add their weight gradients once.  The backward
 returns the per-node sums ``dUd`` / ``dUs`` and the epilogue turns them
 into ``dh``, ``dW1`` and ``db1`` with three matmuls, as the JAX op does.
 

@@ -15,13 +15,18 @@ seed 0), as medians over runs of back-to-back launches between CUDA events
 - edge_block_fwd and edge_block_bwd in bf16: dst rows per block, blocks
   per SM (forward), an approximate sigmoid, and knockouts that each remove
   one part of the kernel to attribute its time (a knockout's output is
-  wrong; only its time is read); the f32 forward, the one-warp-per-row
-  design on the CUDA cores, is timed beside the bf16 forward;
+  wrong; only its time is read);
 - edge_block_bwd in f32 (register-tiled products on the CUDA cores): edges
   per tile, rows per range, the persistent grid, the register-tile shape,
   an approximate sigmoid, and knockouts of the sigmoids, the chain
   products, the dW products, the dUd row sums, the src-role atomics, the
-  warp reductions and the dw flush.
+  warp reductions and the dw flush;
+- edge_block_fwd in f32 (the same tile stages): edges per tile, the
+  register-tile shape, blocks per SM, rows per range, stage 1's edge rows
+  at a time, silu(zg) in the product's epilogue or in the gate pass, an
+  approximate sigmoid, and knockouts of the chain
+  products, the sigmoids, the Us / Ud gathers, the gate reduction, the
+  t_sum additions and the m_sum row sums.
 
 Prints one line per variant: ms, and the largest error against the plain
 version relative to the largest value of each output; for the edge kernels
@@ -47,7 +52,9 @@ from fastegnn_tpu_torch.ops import _cuda_build, edge_kernel as ek, spmm  # noqa:
 
 LAB_DIR = _cuda_build.BUILD_DIR / "lab"
 TC_MARK = "// bf16 forward and backward on the tensor cores"
-F32_MARK = "// f32 backward: register-tiled FP32 products over tiles of edges"
+# the f32 tile stages that both f32 kernels use, then each kernel's section
+F32_MARK = "// f32 tile stages: register-tiled FP32 products over tiles of edges"
+FWD32_MARK = "// f32 forward: m_sum and t_sum over ranges of dst rows"
 Edit = Callable[[str], str]
 
 
@@ -113,8 +120,10 @@ EDGE_BWD: Dict[str, List[Edit]] = {
 
 
 def f32_sub(old: str, new: str) -> Edit:
-    """``sub`` within the f32 backward's part of the source."""
-    return sub(old, new, F32_MARK, TC_MARK)
+    """``sub`` within the f32 tile stages and the f32 backward (an f32
+    forward variant's edit of the stages also changes the backward built
+    with it, which the forward's lab does not time)."""
+    return sub(old, new, F32_MARK, FWD32_MARK)
 
 
 _F32_SIG = "{ return sigmoid(z); }"
@@ -173,6 +182,74 @@ EDGE_BWD_F32: Dict[str, List[Edit]] = {
         f32_sub("  atomicAdd(row + lane, v.x);\n  atomicAdd(row + 32 + lane, v.y);\n", "")],
     "knockout: the dw flush": [
         f32_sub("  {  // ---- this block's weight grads into dw, once ----", "  if (fe < 0) {")],
+}
+
+
+def fwd32_sub(old: str, new: str) -> Edit:
+    """``sub`` within the f32 forward's section."""
+    return sub(old, new, FWD32_MARK, TC_MARK)
+
+
+# silu(zg) wg2 taken in the m Wg1 product's epilogue, so that the gate pass
+# only sums it
+_GATE_EPI = [
+    fwd32_sub("      sA1[e * LDT + k] = t;\n",
+              "      const float zg = t + sLW[LW_BG1 * H + k];\n"
+              "      sA1[e * LDT + k] = zg * sig_f32(zg) * sLW[LW_WG2 * H + k];\n"),
+    fwd32_sub("""        const float2 bg1 = load2(sLW, LW_BG1 * H + k0);
+        const float2 wg2 = load2(sLW, LW_WG2 * H + k0);
+        const float2 zg = make_float2(t.x + bg1.x, t.y + bg1.y);
+        p[i] = zg.x * sig_f32(zg.x) * wg2.x + zg.y * sig_f32(zg.y) * wg2.y;
+""", "        p[i] = t.x + t.y;\n")]
+
+
+def fwd32_smem(kib: int) -> Edit:
+    """Give each f32 forward block ``kib`` KiB of shared memory, so that
+    fewer blocks fit on an SM than its registers would allow."""
+    return sub("constexpr size_t FWD32_SMEM =\n    (",
+               f"constexpr size_t FWD32_SMEM = {kib} * 1024 + 0 * (")
+
+
+EDGE_FWD_F32: Dict[str, List[Edit]] = {
+    "committed: one block per range of 8 rows, tiles of 64 edges, 4x4 register tiles, "
+    "3 blocks per SM, silu(zg) in the gate pass": [],
+    "2 blocks per SM (100 KiB of shared memory per block)": [
+        knobs(FWD32_BLOCKS=2), fwd32_smem(100)],
+    "1 block per SM (150 KiB of shared memory per block)": [
+        knobs(FWD32_BLOCKS=1), fwd32_smem(150)],
+    "tiles of 96 edges (6x4 register tiles), 2 blocks per SM, silu(zg) wg2 in the "
+    "product's epilogue (the first design)": [
+        knobs(FWD32_TE=96, FWD32_BLOCKS=2), *_GATE_EPI],
+    "tiles of 96 edges (6x4 register tiles), 2 blocks per SM": [
+        knobs(FWD32_TE=96, FWD32_BLOCKS=2)],
+    "tiles of 48 edges (3x4 register tiles)": [knobs(FWD32_TE=48)],
+    "2x8 register tiles": [knobs(FWD32_FG=8)],
+    "tiles of 96 edges (3x8 register tiles), 2 blocks per SM": [
+        knobs(FWD32_TE=96, FWD32_FG=8, FWD32_BLOCKS=2)],
+    "tiles of 128 edges (8x4 register tiles), 2 blocks per SM": [
+        knobs(FWD32_TE=128, FWD32_BLOCKS=2)],
+    "tiles of 128 edges (4x8 register tiles), 2 blocks per SM": [
+        knobs(FWD32_TE=128, FWD32_FG=8, FWD32_BLOCKS=2)],
+    "ranges of 16 rows": [knobs(FWD32_ROWS=16)],
+    "stage 1 two edge rows at a time": [knobs(FWD32_PG=2)],
+    "stage 1 four edge rows at a time": [knobs(FWD32_PG=4)],
+    "silu(zg) wg2 in the product's epilogue, not in the gate pass": _GATE_EPI,
+    "product k loop not unrolled": [
+        f32_sub("#pragma unroll 2\n  for (int k = 0; k < H; k += 4) {",
+                      "#pragma unroll 1\n  for (int k = 0; k < H; k += 4) {")],
+    "approximate sigmoid (__expf, __fdividef)": [
+        f32_sub(_F32_SIG, "{ return __fdividef(1.f, 1.f + __expf(-z)); }")],
+    "knockout: sigmoids": [f32_sub(_F32_SIG, "{ return 0.5f + 0.25f * z; }")],
+    "knockout: the two chain products": [
+        f32_sub("for (int k = 0; k < H; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
+    "knockout: the Us and Ud row gathers": [
+        f32_sub("load2(us, (long)s * H + k0)", "make_float2(0.f, 0.f)"),
+        f32_sub("load2(ud, (long)d * H + k0)", "make_float2(0.f, 0.f)")],
+    "knockout: the gate reduction": [
+        fwd32_sub("for (int o = 16; o > 0; o >>= 1)", "for (int o = 0; o > 0; o >>= 1)")],
+    "knockout: the t_sum additions": [fwd32_sub("if (r >= 0) sTS[", "if (r >= n) sTS[")],
+    "knockout: the m_sum row sums": [
+        fwd32_sub("for (int te = lo; te < hi; ++te) {", "for (int te = lo; te < lo; ++te) {")],
 }
 
 EDGE_FWD: Dict[str, List[Edit]] = {
@@ -323,22 +400,26 @@ def edge_bwd_lab(g, f32_variants: Dict[str, List[Edit]] = EDGE_BWD_F32) -> None:
                   f"[{resources(report, kernel)}]", flush=True)
 
 
-def edge_fwd_lab(g) -> None:
-    libs = build("edge_block", EDGE_FWD, "fwd")
+def edge_fwd_lab(g, f32_variants: Dict[str, List[Edit]] = EDGE_FWD_F32) -> None:
+    """The forward's variants, f32 (``edge_fwd_kernel``) and bf16
+    (``edge_fwd_tc_kernel``), on the graph ``g``, built in one parallel pass."""
+    built = build("edge_block", {**{f"f32: {k}": v for k, v in f32_variants.items()},
+                                 **{f"bf16: {k}": v for k, v in EDGE_FWD.items()}}, "fwd")
     _, h, (W1, b1, W2, b2, Wg1, bg1, wg2) = edge_inputs(g)
     dev, H = g.device, ek.H
     n, fe = g.num_nodes, g.edge_attr.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
     for bf16 in (False, True):
+        mode, kernel = ("bf16", "edge_fwd_tc_kernel") if bf16 else ("f32", "edge_fwd_kernel")
         ud, us = ek.build_tables(h, W1, b1, bf16)
         wpack = ek.pack_weights(W1, W2, b2, Wg1, bg1, wg2, bf16)
         want = ek.edge_block_fwd_plain(ud, us, g.coord, g.rowptr, g.src, g.edge_attr, wpack,
                                        bf16)
         outs = [torch.empty(shape, device=dev) for shape in ((n, H), (n, 3))]
         ptrs = (ud, us, g.coord, g.rowptr, g.src, g.edge_attr)
-        # f32: the one-warp-per-row kernel on the CUDA cores, committed source only
-        variants = libs if bf16 else dict(list(libs.items())[:1])
-        for name, (lib, report) in variants.items():
+        for label, (lib, report) in built.items():
+            if not label.startswith(mode + ": "):
+                continue
             fn = lib.fastegnn_edge_fwd
             fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] + \
                 [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
@@ -348,12 +429,11 @@ def edge_fwd_lab(g) -> None:
                           *(o.data_ptr() for o in outs), n, stream)
 
             if call() != 0:
-                raise RuntimeError(f"edge_block variant {name!r} failed to launch")
+                raise RuntimeError(f"edge_block variant {label!r} failed to launch")
             torch.cuda.synchronize()
             err = rel_err(outs, want)
             ms = median_ms(call)
-            mode, kernel = ("bf16", "edge_fwd_tc_kernel") if bf16 else ("f32", "edge_fwd_kernel")
-            print(f"[lab] edge_block_fwd {mode}: {name}: {ms:.4f} ms (err {err:.1e}) "
+            print(f"[lab] edge_block_fwd {label}: {ms:.4f} ms (err {err:.1e}) "
                   f"[{resources(report, kernel)}]", flush=True)
 
 

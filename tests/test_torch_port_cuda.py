@@ -105,9 +105,12 @@ def _ragged_csr(rng, n, long_row, long_deg, empty):
 
 
 # the blockings of csrc/edge_block.cu: the f32 backward walks ranges of
-# F32_ROWS dst rows in tiles of F32_TE edges (BWD_ROWS, TE), the bf16 kernels
-# blocks of 4 rows in tiles of 64 edges (TC_ROWS, TC_TE)
+# F32_ROWS dst rows in tiles of F32_TE edges (BWD_ROWS, TE), the f32 forward
+# ranges of F32_FWD_ROWS rows in tiles of F32_FWD_TE edges (FWD32_ROWS,
+# FWD32_TE), the bf16 kernels blocks of 4 rows in tiles of 64 edges
+# (TC_ROWS, TC_TE)
 F32_ROWS, F32_TE, TC_ROWS, TC_TE = 8, 48, 4, 64
+F32_FWD_ROWS, F32_FWD_TE = 8, 64
 
 
 def _ragged_edge_block_inputs(cuda, bf16, fe, n=70, long_deg=150,
@@ -140,8 +143,8 @@ def _ragged_edge_block_inputs(cuda, bf16, fe, n=70, long_deg=150,
 
 
 def _check_blockings(rowptr):
-    """The default geometry of ``_ragged_edge_block_inputs`` against both
-    blockings."""
+    """The default geometry of ``_ragged_edge_block_inputs`` against the
+    three blockings."""
     rowptr = rowptr.cpu().numpy()
     r, t = F32_ROWS, F32_TE
     # the f32 backward: the hub's range spans several tiles and ends in a
@@ -151,6 +154,13 @@ def _check_blockings(rowptr):
     assert rowptr[r] - rowptr[0] > 3 * t and (rowptr[r] - rowptr[0]) % t
     assert rowptr[3 * r] == rowptr[2 * r]
     assert (rowptr[5 * r] - rowptr[4 * r]) % t and (rowptr[n] - rowptr[n - n % r]) % t
+    # the f32 forward: the hub row (5) crosses a tile boundary of its range,
+    # which ends in a partly filled tile; rows 16..31 hold a whole empty
+    # range; the last range ends in a partly filled tile
+    r, t = F32_FWD_ROWS, F32_FWD_TE
+    assert r > 5 and (rowptr[6] - 1 - rowptr[0]) // t > (rowptr[5] - rowptr[0]) // t
+    assert (rowptr[r] - rowptr[0]) % t and r <= 16 and rowptr[16 + r] == rowptr[16]
+    assert n % r and (rowptr[n] - rowptr[n - n % r]) % t
     # the bf16 kernels: the hub's block spans more than two tiles; an empty
     # block; the last block has 2 rows
     b, tc = TC_ROWS, TC_TE
@@ -210,6 +220,24 @@ def test_edge_block_bwd_at_tile_boundaries(cuda, bf16, fe):
         assert bool(torch.isfinite(a).all()), name
         assert (a - b).abs().max() <= (2e-2 if bf16 else 5e-5) * b.abs().max(), name
     assert (got[0][16:32] == 0).all() and (got[0][[40, 41, 69]] == 0).all()
+
+
+def test_f32_edge_block_fwd_over_many_ranges(cuda):
+    # 6000 rows: 750 ranges, more blocks than the SMs hold at once, so they
+    # run in several waves; rows 100..139 (whole ranges) have no edges and, the outputs coming from torch.empty, must be
+    # written as zeros; no atomics, so two calls agree bit for bit
+    _, (ud, us, x, rowptr, src, _, ea, wpack) = _ragged_edge_block_inputs(
+        cuda, False, 2, n=6000, long_deg=300, empty=range(100, 140))
+    args = (ud, us, x, rowptr, src, ea, wpack, False)
+    got = ek.edge_block_fwd(*args)
+    again = ek.edge_block_fwd(*args)
+    torch.cuda.synchronize()
+    want = ek.edge_block_fwd_plain(*args)
+    for name, a, b, c in zip(("m_sum", "t_sum"), got, want, again):
+        assert bool(torch.isfinite(a).all()), name
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
+        assert (a[100:140] == 0).all(), name
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("bf16", [False, True])
