@@ -17,8 +17,9 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    this run's inputs;
 3. a small input: the model on the card (kernels) against the model on the
    CPU (plain versions), f32 for FastEGNN's fused layer and attention layer,
-   FastRF, FastSchNet, FastTFN and VNEGNN (1e-4), bf16 for the fused layer
-   (2e-2);
+   FastRF, FastSchNet, FastTFN, VNEGNN and the baselines EGNN, GNN, RF,
+   Linear, SchNet and EGHN (these on a small protein chain with its bonds)
+   (1e-4), bf16 for the fused layer (2e-2);
 4. the main path: FastEGNN (H=64, C=3, L=4, gravity, bf16) trained with
    Adam(5e-4, 1e-12) and MMD (sigma 1, weight 0.01, sample 3, per graph) on
    the 8000-node graph, 3 warm-up + 20 timed steps, with the kernels' launch
@@ -55,14 +56,21 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    held against its plain version on that batch) and ``--model VNEGNN``
    (the f32 edge kernels in its A2A cells, held against their plain
    versions on that batch; trained without the MMD term), on the same
-   trajectories;
+   trajectories; then the baselines EGNN, GNN, RF, Linear and SchNet (16
+   interactions), on the MSE alone, the segment-sum kernel held in the
+   forms GNN and SchNet add;
 9. the protein path: the same for the protein CLI (``run_protein.sh``:
    batch 50, sigma 1.0, weight 0.5, delta_frame 15, ``--cutoff_rate 0.5``)
    on a synthetic 856-atom chain of 270 frames (151 / 50 / 52 samples),
    for the five models (VNEGNN's virtual positions from the batch's
-   Fibonacci spheres);
+   Fibonacci spheres) and EGNN; then EGHN (n_cluster 15, 3 layers per
+   block, 4 pooling layers, a 2-layer decoder) on the CLI's datasets with
+   the chain's bonds, the segment-sum kernel held in its bond forms
+   (through ``local_perm`` / ``local_src_perm``) and its pooled
+   adjacency's;
 10. the equivariance CLI on the card at 10 and 100 nodes for the five
-   models: every trial within 1e-4, with each model's launches.
+   models and EGNN, RF, Linear and SchNet: every trial within 1e-4, with
+   each model's launches.
 
 Each of phases 8-10 prints its seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path, and
@@ -111,6 +119,18 @@ OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 KERNELS = ("edge_block_fwd", "edge_block_bwd", "segment_sum")
 # the models the N-body, protein and equivariance CLIs train beside FastEGNN
 NEW_MODELS = ("FastRF", "FastSchNet", "FastTFN", "VNEGNN")
+# the baselines of the JAX package's models/basic.py and its SchNet and EGHN:
+# the N-body CLI trains the first five, the protein CLI EGNN and EGHN (EGHN
+# on its bond-edge datasets), the equivariance CLI checks the equivariant
+# four (GNN is not equivariant); all on the MSE alone
+BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet", "EGHN")
+NBODY_BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet")
+EQUIVARIANT_BASELINES = ("EGNN", "RF", "Linear", "SchNet")
+# depths at the CLIs' configuration where it is not LAYERS: SchNet's 16
+# interactions (whatever --num_layer says), EGHN's 3 EGNN layers per block
+# and 4 pooling layers; in [small], 2 of each (small_model_phase's kw)
+DEPTH = {"SchNet": 16, "EGHN": (3, 4)}
+SMALL_DEPTH = {"SchNet": 2, "EGHN": (2, 2)}
 # launches of KERNELS per layer in one forward and in one backward, for
 # each model as the CLI paths run it (f32, no attention): FastEGNN, FastRF
 # and VNEGNN (its A2A cell) the fused edge block; FastSchNet the
@@ -119,13 +139,26 @@ NEW_MODELS = ("FastRF", "FastSchNet", "FastTFN", "VNEGNN")
 # (FastSchNet reads only the embedded SchNet's positions, so its CFConv
 # does not run); FastTFN the segment-sum, forward the dst mean of m_e and
 # the TFN's sum at src, backward the gathers of [h | x] at dst and src
+# The baselines launch the segment-sum only: EGNN per layer the dst mean of
+# [f | m] forward and the gathers of [h | x] at dst and src backward; GNN
+# the dst mean of m forward and the gathers of h backward; RF the dst mean
+# of its translations forward and the gathers of x backward; SchNet per
+# interaction the dst mean of the coordinate update and the CFConv's sum at
+# src forward, the gathers of [h | x] and of lin1(h) at dst backward;
+# Linear none.  EGHN: expected_launches.
 PER_LAYER = {"FastEGNN": ((1, 0, 0), (0, 1, 0)), "FastRF": ((1, 0, 0), (0, 1, 0)),
              "FastSchNet": ((0, 0, 2), (0, 0, 2)), "FastTFN": ((0, 0, 2), (0, 0, 2)),
-             "VNEGNN": ((1, 0, 0), (0, 1, 0))}
-# launches the last layer does not make, forward and backward: FastTFN's
-# last layer skips the edge MLP and its dst mean, which feed only the
-# features the model discards, so the gathers of [h | x] have no backward
-LAST_LAYER_SKIPS = {"FastTFN": ((0, 0, 1), (0, 0, 2))}
+             "VNEGNN": ((1, 0, 0), (0, 1, 0)), "EGNN": ((0, 0, 1), (0, 0, 2)),
+             "GNN": ((0, 0, 1), (0, 0, 2)), "RF": ((0, 0, 1), (0, 0, 2)),
+             "Linear": ((0, 0, 0), (0, 0, 0)), "SchNet": ((0, 0, 2), (0, 0, 3))}
+# launches a model does not make, forward and backward: FastTFN's last
+# layer skips the edge MLP and its dst mean, which feed only the features
+# the model discards, so the gathers of [h | x] have no backward; SchNet's
+# last interaction skips its feature update (the CFConv's sum at src and
+# lin1(h)'s gather); RF's first layer gathers the input coordinates, which
+# need no gradient
+SKIPS = {"FastTFN": ((0, 0, 1), (0, 0, 2)), "SchNet": ((0, 0, 1), (0, 0, 1)),
+         "RF": ((0, 0, 0), (0, 0, 2))}
 # the segment-sum forms of FastSchNet's path, held against the plain
 # version on its N-body and protein batches: the dst means of the
 # coordinate update (diff * gate) and of m_e, and the backwards of the
@@ -136,6 +169,25 @@ SCHNET_FORMS = (("dst f32 [E, 3]", 3, False, "dst"), ("dst f32 [E, 64]", 64, Fal
 # the backwards of the gathers of [h | x]
 TFN_FORMS = (("src f32 [E, 3]", 3, False, "src"), ("dst f32 [E, 64]", 64, False, "dst"),
              ("dst f32 [E, 67]", 67, False, "dst"), ("src f32 [E, 67]", 67, False, "src"))
+# the baselines' forms no other path holds: GNN's gather of h at src
+# backward; SchNet's CFConv, its sum at src and its gather's backward at
+# dst; EGHN's bond sums at dst through local_perm ([f | 3 V] then [E, 64]
+# in each pooling layer, the pooled adjacency's [E, 15]), its bond
+# gathers' backwards of [h | 3 V] at dst and src, and the real edges'
+# pooled adjacency at dst and its gather's backward at src.  EGNN's and
+# RF's widths (67, 3) are FastSchNet's and FastTFN's on the same batches.
+GNN_FORMS = (("src f32 [E, 64]", 64, False, "src"),)
+SCHNET_BASELINE_FORMS = (("dst f32 [E, 128]", 128, False, "dst"),
+                         ("src f32 [E, 128]", 128, False, "src"))
+EGHN_FORMS = (("bond dst f32 [El, 9]", 9, False, "bond dst"),
+              ("bond dst f32 [El, 64]", 64, False, "bond dst"),
+              ("bond dst f32 [El, 73]", 73, False, "bond dst"),
+              ("bond src f32 [El, 73]", 73, False, "bond src"),
+              ("bond dst f32 [El, 15]", 15, False, "bond dst"),
+              ("dst f32 [E, 15]", 15, False, "dst"), ("src f32 [E, 15]", 15, False, "src"))
+# each model's forms, held on its N-body or protein batch
+PATH_FORMS = {"FastSchNet": SCHNET_FORMS, "FastTFN": TFN_FORMS, "GNN": GNN_FORMS,
+              "SchNet": SCHNET_BASELINE_FORMS, "EGHN": EGHN_FORMS}
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
 TOL = {("fwd", False): 1e-5, ("bwd", False): 5e-5,   # f32; bwd sums with atomics
        ("fwd", True): 2e-2, ("bwd", True): 2e-2}     # bf16: one bf16 ulp can flip
@@ -257,9 +309,12 @@ def segsum_phase(g, gen, forms=(("dst f32", SEGSUM_F, False, "dst"),
                                  ("dst bf16", SEGSUM_F, True, "dst"),
                                  ("src f32", SEGSUM_F, False, "src")), tag="kernel"):
     """The segment-sum kernel against its plain version on the graph ``g``
-    in ``forms`` of ``(name, width, bf16, "dst" or "src")``: phase 2b, the
-    three forms the variant path launches at its shapes; FastSchNet's
-    forms on its N-body and protein batches."""
+    in ``forms`` of ``(name, width, bf16, form)``: phase 2b, the three forms
+    the variant path launches at its shapes; each model's forms on its
+    N-body or protein batch (``PATH_FORMS``).  ``form`` is "dst" or "src"
+    (the real edges over the dst CSR, or through ``src_perm``) or "bond dst"
+    or "bond src" (the bond slots through ``local_perm`` or
+    ``local_src_perm``, EGHN's)."""
     import torch
 
     from fastegnn_tpu_torch.ops import spmm
@@ -268,20 +323,27 @@ def segsum_phase(g, gen, forms=(("dst f32", SEGSUM_F, False, "dst"),
     offsets = g.rowptr.long()
     src = g.src[:e].long()
     # library yardsticks, timed only here: the dst form is a segment_reduce
-    # over the row pointer, the src form an index_add_ at src in edge order
+    # over the row pointer, the src form an index_add_ at src in edge order,
+    # a bond form an index_add_ at the bonds' ends in slot order (the batch
+    # must have no padded bond slot for it to be the same sum)
     def by_dst(d):
         return torch.segment_reduce(d, "sum", offsets=offsets)
 
-    def by_src(d):
-        return torch.zeros(n, d.shape[1], device=d.device).index_add_(0, src, d)
+    def by_ids(ids):
+        return lambda d: torch.zeros(n, d.shape[1], device=d.device).index_add_(0, ids, d)
 
+    table = {"dst": (e, g.rowptr, None, by_dst), "src": (e, g.src_rowptr, g.src_perm, by_ids(src))}
+    if g.local_dst is not None:
+        check(bool(g.local_edge_mask.all()), "bond forms: the batch has padded bond slots")
+        el = g.local_dst.shape[0]
+        table["bond dst"] = (el, g.local_rowptr, g.local_perm, by_ids(g.local_dst.long()))
+        table["bond src"] = (el, g.local_src_rowptr, g.local_src_perm, by_ids(g.local_src.long()))
     results = {}
     for name, f, bf16, form in forms:
-        d = torch.randn(e, f, generator=gen).to(g.device)
+        rows, rowptr, perm, library = table[form]
+        d = torch.randn(rows, f, generator=gen).to(g.device)
         if bf16:
             d = d.bfloat16()
-        rowptr, perm, library = ((g.rowptr, None, by_dst) if form == "dst"
-                                 else (g.src_rowptr, g.src_perm, by_src))
         got = spmm.segment_sum_csr(d, rowptr, perm)
         torch.cuda.synchronize()
         want = spmm.segment_sum_csr_plain(d, rowptr, perm)
@@ -292,8 +354,8 @@ def segsum_phase(g, gen, forms=(("dst f32", SEGSUM_F, False, "dst"),
         ms = median_ms(lambda: spmm.segment_sum_csr(d, rowptr, perm))
         plain_ms = median_ms(lambda: spmm.segment_sum_csr_plain(d, rowptr, perm))
         library_ms = median_ms(lambda: library(d))
-        b_ms, b_by = segsum_bound(e, n, f, d.element_size(), perm is not None)
-        print(f"[{tag}] segment_sum {name} [{e}, {f}] -> [{n}, {f}]: max_abs_err {err:.3e} "
+        b_ms, b_by = segsum_bound(rows, n, f, d.element_size(), perm is not None)
+        print(f"[{tag}] segment_sum {name} [{rows}, {f}] -> [{n}, {f}]: max_abs_err {err:.3e} "
               f"(tol {SEGSUM_TOL:g} x {top:.3e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         check(err <= SEGSUM_TOL * top,
@@ -311,15 +373,26 @@ def launch_counts():
             "segment_sum": spmm.SEGSUM_LAUNCHES}
 
 
-def expected_launches(model: str, layers: int, train_steps: int, forwards: int) -> dict:
+def expected_launches(model: str, layers, train_steps: int, forwards: int) -> dict:
     """Each kernel's launches for ``train_steps`` train steps and
     ``forwards`` more forwards (eval batches, equivariance trials) of
-    ``model`` with ``layers`` layers (``PER_LAYER``, less
-    ``LAST_LAYER_SKIPS``)."""
-    fwd, bwd = PER_LAYER[model]
-    skip_f, skip_b = LAST_LAYER_SKIPS.get(model, ((0, 0, 0), (0, 0, 0)))
-    return {k: (layers * fwd[i] - skip_f[i]) * (train_steps + forwards)
-            + (layers * bwd[i] - skip_b[i]) * train_steps for i, k in enumerate(KERNELS)}
+    ``model`` with ``layers`` layers (``PER_LAYER``, less ``SKIPS``).
+    EGHN's ``layers`` are ``(EGNN layers per block, pooling layers)``: per
+    EGNN layer of its two blocks 1 forward and 2 backward; per pooling layer
+    the two bond sums forward and the bond gathers' backwards at dst and
+    src; the pooled adjacencies' sums forward (bonds and real edges) and
+    the real edges' gather backward (the bonds' feeds only the cut loss,
+    which is not trained on)."""
+    if model == "EGHN":
+        block, pooling = layers
+        fwd, bwd = (0, 0, 2 * block + 2 * pooling + 2), (0, 0, 4 * block + 2 * pooling + 1)
+    else:
+        f, b = PER_LAYER[model]
+        skip_f, skip_b = SKIPS.get(model, ((0, 0, 0), (0, 0, 0)))
+        fwd = [layers * f[i] - skip_f[i] for i in range(3)]
+        bwd = [layers * b[i] - skip_b[i] for i in range(3)]
+    return {k: fwd[i] * (train_steps + forwards) + bwd[i] * train_steps
+            for i, k in enumerate(KERNELS)}
 
 
 def reset_launch_counts() -> None:
@@ -328,21 +401,45 @@ def reset_launch_counts() -> None:
     ek.FWD_LAUNCHES = ek.BWD_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
 
 
+def small_batch(model: str, tmp: str):
+    """Phase 3's input on the card: the 400-node Water-3D-shaped graph, or,
+    for the baselines, two graphs of a 120-atom synthetic protein chain
+    with its bonds (the protein CLI's with_local_edges batches; on the
+    Water-3D graph the target is ``loc + vel``, which Linear predicts
+    exactly, so its gradient is 0)."""
+    from fastegnn_tpu_torch.data.protein import ProteinDataset, make_synthetic_protein_npz
+    from fastegnn_tpu_torch.data.synthetic_water import build_batch
+
+    if model not in BASELINES:
+        return build_batch(n_nodes=400, degree=20, seed=3, device="cuda")[0]
+    npz = f"{tmp}/small.npz"
+    make_synthetic_protein_npz(npz, n_atoms=120, n_frames=30, seed=3)
+    return ProteinDataset(npz, "train", device="cuda", delta_frame=5, cutoff_rate=0.5,
+                          with_local_edges=True).collate([0, 1])
+
+
 def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGNN"):
     """Phase 3: the model on the card against the model on the CPU: f32
-    within 1e-4, or bf16 (FastEGNN's fused layer only) within 2e-2.  A
-    model without gravity (VNEGNN) drops it."""
+    within 1e-4, or bf16 (FastEGNN's fused layer only) within 2e-2 of each
+    output's largest value; every output (coordinates, virtual coordinates,
+    features, EGHN's cut loss) and every gradient.  A model without
+    gravity or attention drops them; SchNet and EGHN run at
+    ``SMALL_DEPTH``."""
     import numpy as np
     import torch
 
-    from fastegnn_tpu_torch.data.synthetic_water import build_batch
     from fastegnn_tpu_torch.models import get_model
     from fastegnn_tpu_torch.train.loss import masked_mse
+    from fastegnn_tpu_torch.train.step import prediction
 
-    g, _, _ = build_batch(n_nodes=400, degree=20, seed=3, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        g = small_batch(model, tmp)
     gen = torch.Generator().manual_seed(3)
+    depth = SMALL_DEPTH.get(model, 2)
+    # get_model drops the keyword arguments a model does not take
     kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2, gravity=(0.0, -1.0, 0.0),
-              attention=attention, compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+              attention=attention, compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+              num_interactions=2, layer_per_block=2, layer_pooling=2)
     gpu = get_model(model, 2, 2, device="cuda", generator=gen, **kw)
     cpu = get_model(model, 2, 2, device="cpu", **kw)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -351,25 +448,28 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     torch.cuda.synchronize()
     reset_launch_counts()
     for net, batch in ((gpu, g), (cpu, gc)):
-        x, vx = net(batch)
-        masked_mse(x, batch.coord_target, batch.node_mask).backward()
-        outs.append((x.detach().cpu(), vx.detach().cpu(),
+        out = net(batch)
+        masked_mse(prediction(out), batch.coord_target, batch.node_mask).backward()
+        outs.append(([t.detach().cpu() for t in (out if isinstance(out, tuple) else (out,))
+                      if t is not None],
                      {k: p.grad.detach().cpu() for k, p in net.named_parameters()
                       if p.grad is not None}))
         if launches is None:   # the card's run
             torch.cuda.synchronize()
             launches = launch_counts()
     want = ({"edge_block_fwd": 0, "edge_block_bwd": 0, "segment_sum": 3 * 2} if attention
-            else expected_launches(model, 2, 1, 0))
+            else expected_launches(model, depth, 1, 0))
     check(launches == want, f"small: launches {launches}, expected {want}")
-    (x1, v1, g1), (x0, v0, g0) = outs
+    (o1, g1), (o0, g0) = outs
     mask = gc.node_mask
-    # f32: absolute; bf16: relative to the largest coordinate, as one bf16
-    # rounding on either side moves a coordinate by up to ~4e-3 of it
-    scale_x = float(x0[mask].abs().max()) if bf16 else 1.0
-    scale_v = float(v0.abs().max()) if bf16 else 1.0
-    err_x = float((x1 - x0)[mask].abs().max()) / scale_x
-    err_v = float((v1 - v0).abs().max()) / scale_v
+    errs = []
+    for a, b in zip(o1, o0):
+        if b.dim() and b.shape[0] == gc.num_nodes:   # node rows: the real nodes only
+            a, b = a[mask], b[mask]
+        # f32: absolute; bf16: relative to the largest value, as one bf16
+        # rounding on either side moves a coordinate by up to ~4e-3 of it
+        scale = float(b.abs().max()) if bf16 else 1.0
+        errs.append(float((a - b).abs().max()) / scale)
     check(g1.keys() == g0.keys(), "small: different parameters got gradients")
     # each gradient against its own largest entry, floored at 1e-4 of the
     # model's largest gradient: some gradients here are ~1e-12, pure
@@ -383,11 +483,11 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
                             else "f32")
     tol = 2e-2 if bf16 else 1e-4
     mode = "bf16 (coord, virtual rel)" if bf16 else "f32"
-    print(f"[small] card vs CPU, 400 nodes, L=2, {mode}, {layer} layer: coord {err_x:.3e} "
-          f"virtual {err_v:.3e} grad (rel, worst {worst}) {err_g:.3e} (tol {tol:g}); "
-          f"launches {launches}", flush=True)
-    check(np.isfinite([err_x, err_v, err_g]).all(), "small: bad output")
-    check(max(err_x, err_v, err_g) <= tol, "small: card and CPU disagree")
+    print(f"[small] card vs CPU, {gc.num_nodes} nodes, depth {depth}, {mode}, {layer} layer: "
+          f"coord {errs[0]:.3e} other outputs {[f'{e:.3e}' for e in errs[1:]]} grad (rel, worst "
+          f"{worst}) {err_g:.3e} (tol {tol:g}); launches {launches}", flush=True)
+    check(np.isfinite(errs + [err_g]).all(), "small: bad output")
+    check(max(errs + [err_g]) <= tol, "small: card and CPU disagree")
 
 
 def train_path_phase(g, n_real, tag: str, attention: bool, bf16: bool, per_step: dict):
@@ -666,12 +766,13 @@ def rollout_phase(model, dataset):
 def training_cli_phase(tag: str, args, sets):
     """Phases 8 and 9: a training CLI's run of ``args.model`` on the card
     (``run_training`` with the CLI's arguments and datasets, the shared MMD
-    draw or, for VNEGNN, the MSE alone), with exact launch counts and per-epoch telemetry; then WARMUP +
-    TIMED train steps of the trained model on one batch and a profiler
-    window over them.  FastEGNN's and VNEGNN's runs then hold the f32 edge
-    kernels against their plain versions on that batch (FastRF's batch is
-    the same one), FastSchNet's and FastTFN's the segment-sum kernel in
-    their forms."""
+    draw for the Fast* family, the MSE alone for VNEGNN and the baselines),
+    with exact launch counts and per-epoch telemetry; then WARMUP + TIMED
+    train steps of the trained model on one batch and a profiler window
+    over them.  FastEGNN's and VNEGNN's runs then hold the f32 edge kernels
+    against their plain versions on that batch (FastRF's batch is the same
+    one), the models of ``PATH_FORMS`` the segment-sum kernel in their
+    forms."""
     import torch
 
     from fastegnn_tpu_torch.cli.common import run_training
@@ -690,7 +791,8 @@ def training_cli_phase(tag: str, args, sets):
     run = run_training(args, dtr, dva, dte, per_graph_sampling=False)
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = expected_launches(args.model, LAYERS, PATH_EPOCHS * n_train, PATH_EPOCHS * n_eval)
+    depth = DEPTH.get(args.model, LAYERS)
+    want = expected_launches(args.model, depth, PATH_EPOCHS * n_train, PATH_EPOCHS * n_eval)
     log = run.log
     print(f"[{tag}] {args.model}, {PATH_EPOCHS} epochs of {n_train} train steps and {n_eval} "
           f"eval batches, batch {args.batch_size}, f32, {loss}: launches {launches} "
@@ -715,7 +817,7 @@ def training_cli_phase(tag: str, args, sets):
     step = make_train_step(run.model, run.optimizer, sigma=args.sigma, weight=args.weight,
                            sample=args.sample, per_graph_sampling=False, use_mmd=use_mmd,
                            generator=torch.Generator(device="cuda").manual_seed(2))
-    per_step = expected_launches(args.model, LAYERS, 1, 0)
+    per_step = expected_launches(args.model, depth, 1, 0)
     _, step_ms, rate, peak_gib = timed_steps(step, g, g.n_real_edges, tag,
                                              f"{args.model} f32, {loss}", per_step)
     prof = profile_window(step, g, tag)
@@ -724,9 +826,8 @@ def training_cli_phase(tag: str, args, sets):
     kern = {}
     if args.model in ("FastEGNN", "VNEGNN"):
         kern = kernel_phase(g, torch.Generator().manual_seed(6), modes=(False,), tag=tag)
-    elif args.model in ("FastSchNet", "FastTFN"):
-        forms = SCHNET_FORMS if args.model == "FastSchNet" else TFN_FORMS
-        kern = segsum_phase(g, torch.Generator().manual_seed(7), forms, tag=tag)
+    elif args.model in PATH_FORMS:
+        kern = segsum_phase(g, torch.Generator().manual_seed(7), PATH_FORMS[args.model], tag=tag)
     numbers = dict(step_ms=step_ms, M_edge_messages_per_s=rate,
                    device_ms_per_step=prof[0] if prof else None,
                    busy_share=prof[1] if prof else None, peak_device_gib=peak_gib,
@@ -735,11 +836,11 @@ def training_cli_phase(tag: str, args, sets):
     return launches, kern, numbers
 
 
-def each_model(tag: str, parse, sets) -> dict:
-    """``training_cli_phase`` for FastEGNN and each of NEW_MODELS on the same
-    datasets; ``parse(more)`` gives the CLI's arguments with ``more`` added."""
+def each_model(tag: str, parse, sets, models) -> dict:
+    """``training_cli_phase`` for each of ``models`` on the same datasets;
+    ``parse(more)`` gives the CLI's arguments with ``more`` added."""
     out = {}
-    for model in ("FastEGNN",) + NEW_MODELS:
+    for model in models:
         args = parse(["--model", model])
         out[model] = training_cli_phase(tag if model == "FastEGNN" else f"{tag} {model}",
                                         args, sets)
@@ -790,14 +891,15 @@ def nbody_phase(tmp: str):
     print(f"[nbody] datasets in {time.perf_counter() - t0:.2f} s: sizes {[len(d) for d in sets]}, "
           f"nodes {sets[0].spec.max_nodes}, edges per graph {sets[0].spec.max_edges}, real "
           f"edges per node {edges_per_node(sets)}", flush=True)
-    runs = each_model("nbody", parse, sets)
+    runs = each_model("nbody", parse, sets, ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES)
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
     return runs
 
 
 def protein_phase(tmp: str):
     """Phase 9: the protein CLI (``run_protein.sh``'s configuration) on a
-    synthetic chain of AdK's backbone size, trained on by each model."""
+    synthetic chain of AdK's backbone size, trained on by each model; EGHN
+    on the CLI's datasets with the bond edges."""
     import torch
 
     from fastegnn_tpu_torch.cli import protein
@@ -828,7 +930,17 @@ def protein_phase(tmp: str):
     check(fib is not None and tuple(fib.shape) == (2, 3, CHANNELS)
           and fib.device.type == "cuda",
           "protein: no virtual_fibonacci on the batch")
-    return each_model("protein", parse, sets)
+    runs = each_model("protein", parse, sets, ("FastEGNN",) + NEW_MODELS + ("EGNN",))
+    t0 = time.perf_counter()
+    bond_args = parse(["--model", "EGHN"])
+    bond_sets = protein.datasets(bond_args, torch.device("cuda"))
+    check([len(d) for d in bond_sets] == PROT_SIZES
+          and all(d.spec.max_local_edges == PROT_ATOMS - 1 for d in bond_sets),
+          "protein: EGHN's datasets have no bonds")
+    print(f"[protein] EGHN's datasets with the bond edges in {time.perf_counter() - t0:.2f} s: "
+          f"{bond_sets[0].spec.max_local_edges} bonds per graph", flush=True)
+    runs["EGHN"] = training_cli_phase("protein EGHN", bond_args, bond_sets)
+    return runs
 
 
 def equivariance_phase():
@@ -839,7 +951,7 @@ def equivariance_phase():
     from fastegnn_tpu_torch.cli import equivariance
 
     errors = {}
-    for model in ("FastEGNN",) + NEW_MODELS:
+    for model in ("FastEGNN",) + NEW_MODELS + EQUIVARIANT_BASELINES:
         for argv in ([], ["--nodes", "100"]):
             argv = [*argv, "--model", model]
             args = equivariance.build_parser().parse_args(argv)
@@ -852,7 +964,7 @@ def equivariance_phase():
             print(f"[equivariance] {model}, {args.nodes} nodes, "
                   f"{args.nodes * (args.nodes - 1)} edges: rc {rc}, errors {errs}; launches "
                   f"{launches}", flush=True)
-            want = expected_launches(model, LAYERS, 0, 2 * args.trials)
+            want = expected_launches(model, DEPTH.get(model, LAYERS), 0, 2 * args.trials)
             check(rc == 0 and len(errs) == args.trials == 3 and max(errs) <= args.atol == 1e-4,
                   f"equivariance: {model} at {args.nodes} nodes failed (rc {rc}, errors {errs})")
             check(launches == want, f"equivariance: {model} launches {launches}, expected {want}")
@@ -901,7 +1013,7 @@ def main() -> int:
     small_model_phase(attention=False)
     small_model_phase(attention=True)
     small_model_phase(attention=False, bf16=True)
-    for model in NEW_MODELS:
+    for model in NEW_MODELS + BASELINES:
         small_model_phase(attention=False, model=model)
     launches, step_ms, rate = train_path_phase(
         g, n_real, "main", attention=False, bf16=True,
@@ -953,8 +1065,8 @@ def main() -> int:
         **path_launches(paths, "segment_sum"),
         **seg["dst f32"],
         "forms": {k: v for k, v in seg.items() if k != "dst f32"},
-        **{f"{p}_{m}_forms": paths[p][m][1] for p in ("nbody", "protein")
-           for m in ("FastSchNet", "FastTFN")},
+        **{f"{p}_{m}_forms": run[1] for p in ("nbody", "protein")
+           for m, run in paths[p].items() if m in PATH_FORMS},
     })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,

@@ -1,12 +1,15 @@
 """Shared CLI plumbing (counterpart of ``fastegnn_tpu/cli/common.py``).
 
 The flags and their defaults are the JAX package's.  ``--model`` takes the
-models of ``models/__init__.py::MODEL_REGISTRY`` (FastEGNN, FastRF,
-FastSchNet, FastTFN, VNEGNN); those of ``MMD_MODELS`` train with the MMD
-loss, VNEGNN on the MSE alone, as in the JAX CLI.  What the port does not have
-raises instead of falling back: the other models of the JAX registry, a
-``--compute_dtype bfloat16`` for a model without a bf16 path (the JAX CLI
-drops it quietly), and a ``--mesh`` over more than one device.
+models of ``models/__init__.py::MODEL_REGISTRY`` that train on a graph
+batch; those of ``MMD_MODELS`` train with the MMD loss, the others on the
+MSE alone, as in the JAX CLI.  EGHN needs a dataset with bond edges (the
+protein CLI's); its cut loss is not added to the loss.  ``--model MLP``
+raises, as the JAX CLI fails on it: ``FullMLP`` takes an array, not a
+graph batch.  What the port does not have raises instead of falling back:
+the rest of the JAX registry, a ``--compute_dtype bfloat16`` for a model
+without a bf16 path (the JAX CLI drops it quietly), and a ``--mesh`` over
+more than one device.
 ``--platform`` names the port's device: absent means the CUDA card,
 ``cpu`` asks for the CPU.
 """
@@ -92,6 +95,12 @@ def run_training(args, dataset_train, dataset_valid, dataset_test,
           f"{len(dataset_valid)}/{len(dataset_test)}")
     parse_mesh(args.mesh)
     spec = dataset_train.spec
+    if args.model == "MLP":
+        raise ValueError("--model MLP: FullMLP takes an array, not a graph batch, so no "
+                         "training CLI can feed it (the JAX CLI fails on it too)")
+    if args.model == "EGHN" and spec.max_local_edges == 0:
+        raise ValueError("EGHN needs local bond edges: construct the dataset with "
+                         "with_local_edges=True")
     model = get_model(
         args.model, spec.node_feat_dim, spec.edge_attr_dim, hidden=args.dim_hidden,
         virtual_channels=args.virtual_channel, n_layers=args.num_layer,

@@ -1,18 +1,19 @@
 """Standalone SE(3)-equivariance check (counterpart of
 ``fastegnn_tpu/cli/equivariance.py``; reference ``equivariant_test.py``).
 
-Builds ``--model`` (FastEGNN, FastRF, FastSchNet, FastTFN or VNEGNN;
-H=64, C=3, L=4 by default: the reference configuration,
-``equivariant_test.py:12-20``) with
+Builds ``--model`` (a model of ``models/__init__.py::MODEL_REGISTRY`` that
+takes a graph without bond edges: not EGHN or MLP; H=64, C=3, L=4 by
+default: the reference configuration, ``equivariant_test.py:12-20``) with
 weights from ``--seed``, the JAX CLI's
 random graph (complete, ``[d0, d0]`` edge attributes), and checks
 ``|f(xR + t) - f(x)R - t| <= atol`` under a random integer-degree rotation
 and a random translation per trial (``equivariant_test.py:38-62``); the
 graph and the rotations come from the same numpy stream as the JAX CLI's.
 :func:`errors` gives each trial's error; :func:`main` prints them and
-returns 0 when every trial passes, else 1.  It runs on the card (the f32
-edge kernels for FastEGNN, FastRF and VNEGNN, the segment-sum kernel for
-FastSchNet and FastTFN) unless
+returns 0 when every trial passes, else 1 (GNN, which is not equivariant,
+fails).  The prediction is the model's output or its tuple's first entry,
+as in the JAX CLI.  It runs on the card (the f32 edge kernels for
+FastEGNN, FastRF and VNEGNN, the segment-sum kernel for the others) unless
 ``--platform cpu`` is given; TF32 stays off.
 
 Usage: python -m fastegnn_tpu_torch.cli.equivariance [--nodes 10] [--platform cpu]
@@ -50,6 +51,7 @@ def errors(args) -> list:
     from fastegnn_tpu_torch.models import get_model
     from fastegnn_tpu_torch.ops.neighbors import cutoff_edges_np
     from fastegnn_tpu_torch.ops.rotation import random_rotation
+    from fastegnn_tpu_torch.train.step import prediction
 
     device = resolve_device(args.platform)
     rng = np.random.default_rng(args.seed)
@@ -75,7 +77,7 @@ def errors(args) -> list:
 
     @torch.no_grad()
     def fwd(g):
-        return model(g)[0]
+        return prediction(model(g))
 
     errs = []
     for _ in range(args.trials):

@@ -22,8 +22,11 @@ Two stages, as in the JAX package:
      batches ``GraphBatch.virtual_fibonacci`` [B, 3, C].
 
 ``bond_edges`` gives the covalent-bond graph (EGHN's local edges,
-``:216-224``).  EGHN itself, and the dataset's ``with_local_edges`` batches
-for it, are not ported yet (ROADMAP item 12).
+``:216-224``).  With ``with_local_edges`` (the protein CLI's ``--model
+EGHN``) every graph carries those bonds as its local edges, with
+``[topology length, frame-0 length]`` attributes (reference
+``utils/train.py:71-76``), and its batches their CSR orders
+(``graph.py``).
 :func:`make_synthetic_protein_npz` writes a fixture of the same schema
 where MDAnalysis or the download is not available.
 """
@@ -167,10 +170,6 @@ class ProteinDataset(GraphDataset):
         seed: int = 0,
         with_local_edges: bool = False,
     ):
-        if with_local_edges:
-            raise ValueError(
-                "with_local_edges: the bond-edge batches are EGHN's, and EGHN is "
-                "queued in ROADMAP.md (item 12); bond_edges() gives the bonds")
         data = np.load(npz_path)
         pos, vel = data["positions"], data["velocities"]
         charges, dims = data["charges"], data["dimensions"]
@@ -202,16 +201,25 @@ class ProteinDataset(GraphDataset):
             node_feat = np.concatenate(
                 [np.linalg.norm(vel_0, axis=1, keepdims=True), charges / charges.max()],
                 axis=1).astype(np.float32)
-            raw.append(dict(
+            entry = dict(
                 node_feat=node_feat, coord=loc_0, vel=vel_0, dst=dst, src=src,
                 edge_attr=np.concatenate([d0, d0], axis=1).astype(np.float32),
-                coord_target=loc_t, node_attr=charges.astype(np.float32)))
+                coord_target=loc_t, node_attr=charges.astype(np.float32))
+            if with_local_edges:
+                bd, bs = self._bonds[:, 0], self._bonds[:, 1]
+                blen = np.linalg.norm(loc_0[bd] - loc_0[bs], axis=1,
+                                      keepdims=True).astype(np.float32)
+                entry.update(local_dst=bd.astype(np.int32), local_src=bs.astype(np.int32),
+                             local_edge_attr=np.concatenate(
+                                 [self._bond_lengths[:, None].astype(np.float32), blen], axis=1))
+            raw.append(entry)
 
         spec = GraphSpec(
             max_nodes=pos.shape[1],
             max_edges=max(r["dst"].shape[0] for r in raw),
             n_graphs=1, node_feat_dim=2, edge_attr_dim=2, node_attr_dim=1,
-            virtual_channels=virtual_channels)
+            virtual_channels=virtual_channels,
+            max_local_edges=self._bonds.shape[0] if with_local_edges else 0)
         graphs = []
         for r in raw:
             g = pad_graph(spec, **r)

@@ -24,6 +24,15 @@ edges' ``src``, and ``src_rowptr`` [N + 1], the row pointer of the
 src-sorted real edges (the JAX package's ``src_perm`` / ``csr_src``): the
 segment-sum kernel reads edge rows through them in ``gather_src``'s
 backward (``ops/spmm.py``).
+
+A batch of graphs with local (bond) edges, EGHN's pooling graph, carries
+them as the JAX batch does: ``local_dst`` / ``local_src`` offset by
+``g * max_nodes`` with masked slots pointing at node 0, in the graphs'
+own order.  Beside them it carries the stable argsort of the real bonds by
+dst, ``local_perm``, with its row pointer ``local_rowptr`` [N + 1], and
+the same by src, ``local_src_perm`` / ``local_src_rowptr``, so that the
+bond sums and the bond gathers' backwards run on the segment-sum kernel's
+perm form without reordering the bonds.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ class GraphSpec:
     edge_attr_dim: int = 1
     node_attr_dim: int = 1
     virtual_channels: int = 3
+    max_local_edges: int = 0      # capacity for local (bond) edges (EGHN)
 
 
 @dataclasses.dataclass
@@ -75,6 +85,15 @@ class GraphBatch:
     n_real_edges: int             # == rowptr[N], known on the host
     node_attr: Optional[torch.Tensor] = None   # [N, Fa]
     virtual_fibonacci: Optional[torch.Tensor] = None   # [B, 3, C] VNEGNN virtual positions
+    # local (bond) edges, EGHN's: [El] in the graphs' order, masked slots at node 0
+    local_dst: Optional[torch.Tensor] = None         # [El] int32
+    local_src: Optional[torch.Tensor] = None         # [El] int32
+    local_edge_attr: Optional[torch.Tensor] = None   # [El, Fl]
+    local_edge_mask: Optional[torch.Tensor] = None   # [El] bool
+    local_perm: Optional[torch.Tensor] = None        # [El_real] int32 real bonds by dst
+    local_rowptr: Optional[torch.Tensor] = None      # [N + 1] int32 its row pointer
+    local_src_perm: Optional[torch.Tensor] = None    # [El_real] int32 real bonds by src
+    local_src_rowptr: Optional[torch.Tensor] = None  # [N + 1] int32 its row pointer
 
     @property
     def num_nodes(self) -> int:
@@ -130,11 +149,15 @@ def pad_graph(
     edge_attr,
     coord_target,
     node_attr=None,
+    local_dst=None,
+    local_src=None,
+    local_edge_attr=None,
     dtype=np.float32,
     spatial_sort: bool = False,
 ) -> dict:
     """Pad one raw graph's numpy arrays to the spec's single-graph
-    capacities; ``spatial_sort`` relabels nodes in Morton order first."""
+    capacities (local bond edges, where given, to ``max_local_edges``);
+    ``spatial_sort`` relabels nodes in Morton order first."""
     if spatial_sort:
         perm = morton_order(coord)
         inv = np.empty_like(perm)
@@ -144,6 +167,8 @@ def pad_graph(
         dst, src = inv[np.asarray(dst)], inv[np.asarray(src)]
         if node_attr is not None:
             node_attr = np.asarray(node_attr)[perm]
+        if local_dst is not None:
+            local_dst, local_src = inv[np.asarray(local_dst)], inv[np.asarray(local_src)]
 
     n = np.asarray(coord).shape[0]
     e = np.asarray(dst).shape[0]
@@ -171,7 +196,24 @@ def pad_graph(
     }
     if node_attr is not None:
         out["node_attr"] = pad_to(node_attr, spec.max_nodes).astype(dtype)
+    if local_dst is not None:
+        el, cap = np.asarray(local_dst).shape[0], spec.max_local_edges
+        if el > cap:
+            raise ValueError(f"{el} local edges exceed spec capacity {cap}")
+        out["local_dst"] = pad_to(np.asarray(local_dst).astype(np.int32), cap)
+        out["local_src"] = pad_to(np.asarray(local_src).astype(np.int32), cap)
+        out["local_edge_attr"] = pad_to(local_edge_attr, cap).astype(dtype)
+        out["local_edge_mask"] = pad_to(np.ones(el, bool), cap)
+        out["n_local_edges"] = el
     return out
+
+
+def _csr_through(ids: np.ndarray, mask: np.ndarray, n: int):
+    """``(perm, rowptr)``: the stable argsort of the masked-in ``ids`` (as
+    indices into ``ids``) and the row pointer [n + 1] of that order."""
+    real = np.flatnonzero(mask)
+    perm = real[np.argsort(ids[real], kind="stable")]
+    return perm, np.searchsorted(ids[perm], np.arange(n + 1), side="left")
 
 
 def batch_graphs(
@@ -252,6 +294,22 @@ def batch_graphs(
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
+    local = {}
+    if all("local_dst" in g for g in graphs):
+        # offset per graph slot like the main edges; masked slots point at
+        # node 0 and are left out of the perms
+        lmask = cat("local_edge_mask")
+        ldst, lsrc = (np.concatenate([
+            np.where(g["local_edge_mask"], g[k] + i * spec.max_nodes, 0)
+            for i, g in enumerate(graphs)]).astype(np.int32) for k in ("local_dst", "local_src"))
+        dperm, drowptr = _csr_through(ldst, lmask, total_nodes)
+        sperm, srowptr = _csr_through(lsrc, lmask, total_nodes)
+        local = dict(local_dst=t(ldst), local_src=t(lsrc),
+                     local_edge_attr=t(cat("local_edge_attr")), local_edge_mask=t(lmask),
+                     **{k: t(a.astype(np.int32)) for k, a in (
+                         ("local_perm", dperm), ("local_rowptr", drowptr),
+                         ("local_src_perm", sperm), ("local_src_rowptr", srowptr))})
+
     return GraphBatch(
         node_feat=t(cat("node_feat")),
         coord=t(cat("coord")),
@@ -272,4 +330,5 @@ def batch_graphs(
         n_real_edges=n_real,
         node_attr=node_attr,
         virtual_fibonacci=fib,
+        **local,
     )

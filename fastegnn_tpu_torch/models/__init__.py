@@ -4,7 +4,9 @@
 constructors, ``MMD_MODELS`` is the Fast* family that trains with the MMD
 virtual-node loss (reference ``utils/train.py:111-112``) and
 ``MODEL_KWARGS`` the keyword arguments each constructor takes beside
-``node_feat_dim``, ``edge_attr_dim``, ``device`` and ``generator``.
+``node_feat_dim``, ``edge_attr_dim``, ``device`` and ``generator`` (the
+JAX package's sets).  ``NOT_YET_PORTED`` are the JAX registry's names the
+port does not have yet (ROADMAP.md item 12); they raise.
 :func:`get_model` drops the others, as the JAX package's does, except a
 ``compute_dtype`` other than f32 for a model without a bf16 path, which
 raises: the card does not run a precision the caller did not ask for.
@@ -14,9 +16,11 @@ from __future__ import annotations
 
 import torch
 
+from fastegnn_tpu_torch.models.basic import EGNN, GNN, FullMLP, LinearDynamics, RFVel
+from fastegnn_tpu_torch.models.eghn import EGHN
 from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
 from fastegnn_tpu_torch.models.fast_rf import FastRF
-from fastegnn_tpu_torch.models.schnet import FastSchNet
+from fastegnn_tpu_torch.models.schnet import FastSchNet, SchNet
 from fastegnn_tpu_torch.models.tfn import FastTFN
 from fastegnn_tpu_torch.models.vnegnn import VNEGNN
 
@@ -26,11 +30,20 @@ MODEL_REGISTRY = {
     "FastSchNet": FastSchNet,
     "FastTFN": FastTFN,
     "VNEGNN": VNEGNN,
+    # reads the bond edges from the batch (the protein dataset's
+    # with_local_edges); returns (x, h, cut_loss)
+    "EGHN": EGHN,
+    "EGNN": EGNN,
+    "GNN": GNN,
+    "Linear": LinearDynamics,
+    "RF": RFVel,
+    # takes an array, not a graph batch: no training CLI feeds it
+    "MLP": FullMLP,
+    "SchNet": SchNet,
 }
 
-# the JAX registry's other names: ported later (ROADMAP.md item 12)
-NOT_YET_PORTED = ("EGHN", "TFN", "EGNN", "GNN", "Linear", "RF", "MLP", "SchNet", "GVP",
-                  "DimeNet", "DimeNet++")
+# the JAX registry's other names: the rest of ROADMAP.md item 12
+NOT_YET_PORTED = ("TFN", "GVP", "DimeNet", "DimeNet++")
 
 MMD_MODELS = {"FastEGNN", "FastRF", "FastTFN", "FastSchNet"}
 
@@ -43,6 +56,15 @@ MODEL_KWARGS = {
     "FastTFN": _GEOMETRIC_KW | {"virtual_channels", "gravity"},
     # no gravity term
     "VNEGNN": _GEOMETRIC_KW | {"virtual_channels"},
+    "EGHN": {"hidden", "n_cluster", "layer_per_block", "layer_pooling", "layer_decoder"},
+    "EGNN": {"hidden", "n_layers"},
+    "GNN": {"hidden", "n_layers"},
+    "Linear": set(),
+    "RF": {"hidden", "n_layers"},
+    "MLP": {"hidden", "n_layers"},
+    # the JAX CLI fixes SchNet at 16 interactions whatever --num_layer says
+    # (main_nbody.py:129)
+    "SchNet": {"hidden", "num_interactions", "num_filters", "num_gaussians", "cutoff"},
 }
 
 
@@ -50,8 +72,9 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
               generator=None, **kwargs) -> torch.nn.Module:
     """The model ``name`` built with the keyword arguments it takes."""
     if name in NOT_YET_PORTED:
-        raise ValueError(f"model {name!r} is not ported yet; the rest of the model zoo is "
-                         "queued in ROADMAP.md (item 12)")
+        raise ValueError(f"model {name!r} is not ported yet: what is left of ROADMAP.md "
+                         "item 12 is GVP, DimeNet and DimeNet++ (with triplets) and the TFN "
+                         "family (--model TFN)")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     allowed = MODEL_KWARGS[name]
@@ -63,5 +86,6 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
                                 generator=generator, **kwargs)
 
 
-__all__ = ["FastEGNN", "FastRF", "FastSchNet", "FastTFN", "VNEGNN", "MODEL_REGISTRY",
-           "MMD_MODELS", "MODEL_KWARGS", "NOT_YET_PORTED", "get_model"]
+__all__ = ["EGHN", "EGNN", "GNN", "FastEGNN", "FastRF", "FastSchNet", "FastTFN", "FullMLP",
+           "LinearDynamics", "RFVel", "SchNet", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS",
+           "MODEL_KWARGS", "NOT_YET_PORTED", "get_model"]

@@ -12,6 +12,15 @@ embedded one-interaction SchNet (counterpart of the FastSchNet part of
   positions by the dst mean of ``(pos_dst - pos_src) * Linear([gauss,
   h_dst, h_src])``.  The interaction linears are xavier-uniform with zero
   biases, ``lin1`` without a bias (``SchNet.py:282-289, 316-319``).
+- :class:`SchNet` (``SchNet.py:119-195``): the standalone baseline, the
+  interaction stack behind a ``Linear(node_feat_dim, H)`` embedding,
+  returning positions.  As in the JAX package's default
+  (``freeze_distances=True``, the reference's quirk) the Gaussians come
+  from the input positions once (``SchNet.py:181-183``); the JAX option
+  to recompute them per interaction, which no CLI sets, is not taken.
+  The CLI's configuration is 16 interactions, 128 filters, 64 Gaussians,
+  cutoff 1.0 (``main_nbody.py:129``).  The last interaction's feature
+  update reaches no position and does not run.
 - :class:`SchNetGCL` and :class:`FastSchNet` (``FastSchNet.py:18-284``):
   FastEGNN's virtual block, virtual / node feature updates and gravity
   term; the real <-> real coordinate update is the embedded SchNet (1
@@ -34,9 +43,10 @@ output head ``lin1`` / ``lin2``.  The rest keep the reference's
 ``state_dict`` maps into JAX params through ``fastegnn_tpu/utils/
 torch_import.py::params_from_fastschnet_state_dict`` and back through
 :func:`fastegnn_tpu_torch.utils.weights.state_dict_from_fastschnet_params`.
-As in the JAX package the model computes in f32 only.  The standalone
-``SchNet`` baseline is queued with the rest of the model zoo (ROADMAP.md
-item 12).
+The standalone SchNet keeps the reference's keys too (``embedding``,
+``interactions.{i}``, ``coord_updates.{i}``; ``params_from_schnet_state_dict``
+and :func:`fastegnn_tpu_torch.utils.weights.state_dict_from_schnet_params`).
+As in the JAX package the models compute in f32 only.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import torch
 from torch import nn
 
 from fastegnn_tpu_torch.graph import GraphBatch
+from fastegnn_tpu_torch.models.basic import placed
 from fastegnn_tpu_torch.models.fastegnn_core import (
     LayerCfg, VirtualNodeModel, edge_features, gather_edge_ends, node_feature_update,
     node_gate, segment_mean_at_dst, virtual_block, virtual_feature_update)
@@ -147,6 +158,34 @@ class SchNetCore(nn.Module):
                 return pos, None
             h = h + interaction(h, gauss, edge_weight, graph)
         return pos, h
+
+
+class SchNet(SchNetCore):
+    """The standalone SchNet (``SchNet.py:165-195``): ``forward(graph) ->
+    positions [N, 3]``, every interaction on the Gaussians of the input
+    positions.  ``edge_attr_dim`` is not read."""
+
+    def __init__(self, node_feat_dim: int, edge_attr_dim: int = 0, hidden: int = 64,
+                 num_filters: int = 128, num_interactions: int = 16, num_gaussians: int = 64,
+                 cutoff: float = 1.0, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(hidden, num_filters, num_interactions, num_gaussians, cutoff)
+        self.embedding = nn.Linear(node_feat_dim, hidden)
+        placed(self, device, generator)
+
+    def forward(self, graph: GraphBatch) -> torch.Tensor:
+        h, pos = self.embedding(graph.node_feat), graph.coord
+        last = len(self.interactions) - 1
+        for i, (update, interaction) in enumerate(zip(self.coord_updates, self.interactions)):
+            h_d, h_s, p_d, p_s = gather_edge_ends(graph, h, pos)
+            diff = p_d - p_s
+            if i == 0:
+                edge_weight = diff.norm(dim=-1)
+                gauss = gaussian_smearing(edge_weight, 0.0, self.cutoff, self.num_gaussians)
+            gate = update(torch.cat([gauss, h_d, h_s], -1))
+            pos = pos + segment_mean_at_dst(diff * gate, graph)
+            if i < last:   # the last feature update reaches no position
+                h = h + interaction(h, gauss, edge_weight, graph)
+        return pos
 
 
 class SchNetGCL(nn.Module):

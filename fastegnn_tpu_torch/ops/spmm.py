@@ -19,7 +19,12 @@ The public ops keep the JAX package's names:
 - :func:`gather_dst` / :func:`gather_src`: ``h[dst]`` / ``h[src]`` whose
   backward is the kernel, over the dst CSR or over the src-sorted CSR
   reading rows through ``src_perm``.  The gathers themselves are
-  ``index_select``, as the JAX package's ``jnp.take`` lies outside Pallas.
+  ``index_select``, as the JAX package's ``jnp.take`` lies outside Pallas;
+- :func:`gather_through` / :func:`segment_sum_through`: the same gather
+  and sum for any edge list kept in its own order, through a stable argsort
+  ``perm`` of its ids and that order's row pointer (``gather_src`` and
+  ``src_segment_sum_csr`` are these at src; EGHN's bond edges, which keep
+  the JAX package's order, use them at dst and at src).
 
 The JAX package's ``CSRMeta`` block tables are not ported: the batch's
 ``rowptr`` / ``src_rowptr`` (``graph.py``) take their place.
@@ -158,17 +163,34 @@ def sorted_segment_sum(data: torch.Tensor, dst: torch.Tensor,
     return sorted_segment_sum_csr(data, dst, rowptr, num_segments)
 
 
-class _SrcSegmentSum(torch.autograd.Function):
+class _SumThrough(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, src, src_perm, src_rowptr):
-        ctx.save_for_backward(src)
+    def forward(ctx, data, ids, perm, rowptr):
+        ctx.save_for_backward(ids)
         ctx.dtype = data.dtype
-        return segment_sum_csr(data.contiguous(), src_rowptr, src_perm)
+        return segment_sum_csr(data.contiguous(), rowptr, perm)
 
     @staticmethod
     def backward(ctx, g):
-        (src,) = ctx.saved_tensors
-        return _masked_gather(g, src).to(ctx.dtype), None, None, None
+        (ids,) = ctx.saved_tensors
+        return _masked_gather(g, ids).to(ctx.dtype), None, None, None
+
+
+def segment_sum_through(data: torch.Tensor, ids: torch.Tensor, perm: torch.Tensor,
+                        rowptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``[num_segments, F]`` f32 sums of the rows ``data`` [E, F] (f32 or
+    bf16) at their ``ids`` [E], read in the order of ``perm`` int32 (a
+    stable argsort of the ids of the rows to sum, which may leave rows
+    out) over its row pointer ``rowptr`` ``[num_segments + 1]``.
+    Differentiable in ``data``: the backward is the gather ``g[ids]``, zero
+    where an id is out of range, so a row left out of ``perm`` must carry
+    an out-of-range id."""
+    if rowptr.shape[0] != num_segments + 1:
+        raise ValueError(f"rowptr has {rowptr.shape[0]} entries for "
+                         f"{num_segments} segments")
+    if data.shape[0] != ids.shape[0]:
+        raise ValueError(f"data ({data.shape[0]} rows) and ids ({ids.shape[0]}) differ")
+    return _SumThrough.apply(data, ids, perm, rowptr)
 
 
 def src_segment_sum_csr(data: torch.Tensor, src: torch.Tensor, src_perm: torch.Tensor,
@@ -179,13 +201,10 @@ def src_segment_sum_csr(data: torch.Tensor, src: torch.Tensor, src_perm: torch.T
     int32 is the stable argsort of ``src`` and ``src_rowptr`` ``[N + 1]``
     its row pointer.  The mirror of :func:`sorted_segment_sum_csr`;
     differentiable in ``data``, whose backward is the gather ``g[src]``."""
-    if src_rowptr.shape[0] != num_segments + 1:
-        raise ValueError(f"src_rowptr has {src_rowptr.shape[0]} entries for "
-                         f"{num_segments} segments")
     if not data.shape[0] == src.shape[0] == src_perm.shape[0]:
         raise ValueError(f"data ({data.shape[0]} rows), src ({src.shape[0]}) and "
                          f"src_perm ({src_perm.shape[0]}) must cover the same real edges")
-    return _SrcSegmentSum.apply(data, src, src_perm, src_rowptr)
+    return segment_sum_through(data, src, src_perm, src_rowptr, num_segments)
 
 
 class _GatherDst(torch.autograd.Function):
@@ -201,17 +220,17 @@ class _GatherDst(torch.autograd.Function):
         return segment_sum_csr(g.contiguous(), rowptr).to(ctx.dtype), None, None
 
 
-class _GatherSrc(torch.autograd.Function):
+class _GatherThrough(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, src, src_perm, src_rowptr):
-        ctx.save_for_backward(src_perm, src_rowptr)
+    def forward(ctx, h, ids, perm, rowptr):
+        ctx.save_for_backward(perm, rowptr)
         ctx.dtype = h.dtype
-        return _take(h, src)
+        return _take(h, ids)
 
     @staticmethod
     def backward(ctx, g):
-        src_perm, src_rowptr = ctx.saved_tensors
-        dh = segment_sum_csr(g.contiguous(), src_rowptr, src_perm)
+        perm, rowptr = ctx.saved_tensors
+        dh = segment_sum_csr(g.contiguous(), rowptr, perm)
         return dh.to(ctx.dtype), None, None, None
 
 
@@ -228,4 +247,14 @@ def gather_src(h: torch.Tensor, src: torch.Tensor, src_perm: torch.Tensor,
     node with the kernel over the src-sorted CSR: ``src_perm`` [E] int32 is
     the stable argsort of ``src`` and ``src_rowptr`` ``[N + 1]`` its row
     pointer."""
-    return _GatherSrc.apply(h, src, src_perm, src_rowptr)
+    return gather_through(h, src, src_perm, src_rowptr)
+
+
+def gather_through(h: torch.Tensor, ids: torch.Tensor, perm: torch.Tensor,
+                   rowptr: torch.Tensor) -> torch.Tensor:
+    """``h[ids]`` (ids clipped to ``[0, N)``) for ids [E] in any order; the
+    backward sums the rows per node with the kernel, reading them in the
+    order of ``perm`` int32 (a stable argsort of the ids of the rows that
+    count) over its row pointer ``rowptr`` ``[N + 1]``.  A row left out of
+    ``perm`` gets no gradient to ``h``."""
+    return _GatherThrough.apply(h, ids, perm, rowptr)

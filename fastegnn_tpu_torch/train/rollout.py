@@ -18,6 +18,7 @@ import torch
 
 from fastegnn_tpu_torch.graph import GraphBatch, batch_graphs, pad_graph
 from fastegnn_tpu_torch.ops.neighbors import radius_graph_np
+from fastegnn_tpu_torch.train.step import prediction
 
 
 def make_rollout(model: torch.nn.Module, n_steps: int, vel_mode: str = "difference",
@@ -38,7 +39,7 @@ def make_rollout(model: torch.nn.Module, n_steps: int, vel_mode: str = "differen
         x, v = batch.coord, batch.vel
         frames = []
         for _ in range(n_steps):
-            x_new = model(dataclasses.replace(batch, coord=x, vel=v))[0]
+            x_new = prediction(model(dataclasses.replace(batch, coord=x, vel=v)))
             if vel_mode == "difference":
                 v = x_new - x
             x = x_new

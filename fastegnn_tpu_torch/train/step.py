@@ -38,15 +38,26 @@ def key_generator(key, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(hi << 32 | lo)
 
 
+def prediction(out) -> torch.Tensor:
+    """The predicted positions of a model's output: the output itself, or
+    the first entry of a tuple (as the JAX ``loss_fn`` takes them)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def make_loss_fn(model, sigma: float, weight: float, sample: int,
                  per_graph_sampling: bool = False, use_mmd: bool = True) -> Callable:
     """``loss_fn(graph, draw) -> (total, mse, mmd)``; ``mse`` is the logged
-    loss, before the MMD term is added (reference ``utils/train.py:104-108``)."""
+    loss, before the MMD term is added (reference ``utils/train.py:104-108``).
+    The prediction is a tensor or a tuple's first entry; the MMD term, where
+    ``use_mmd``, reads the virtual positions from the tuple's second entry
+    and is 0 for a model without one (``fastegnn_tpu/train/step.py:94-104``)."""
 
     def loss_fn(graph: GraphBatch, draw: Optional[torch.Tensor]):
-        pred, vloc = model(graph)
+        out = model(graph)
+        pred = prediction(out)
         mse = masked_mse(pred, graph.coord_target, graph.node_mask)
-        if not use_mmd:
+        vloc = out[1] if use_mmd and isinstance(out, tuple) and len(out) > 1 else None
+        if vloc is None:
             return mse, mse, torch.zeros_like(mse)
         kw = {"scores": draw} if per_graph_sampling else {"perm": draw}
         mmd = mmd_loss(pred, vloc, graph.node_mask, graph.n_graphs, sigma, sample, **kw)

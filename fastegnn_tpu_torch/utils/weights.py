@@ -1,14 +1,17 @@
-"""Weights from the JAX package's Fast* params into the port.
+"""Weights from the JAX package's params into the port.
 
-Each function but one is the inverse of an importer of
+Each function but two is the inverse of an importer of
 ``fastegnn_tpu/utils/torch_import.py``: :func:`state_dict_from_jax_params`
 of ``params_from_reference_state_dict`` (FastEGNN),
 :func:`state_dict_from_fastrf_params` of ``params_from_fastrf_state_dict``,
 :func:`state_dict_from_fastschnet_params` of
-``params_from_fastschnet_state_dict`` and
-:func:`state_dict_from_vnegnn_params` of ``params_from_vnegnn_state_dict``.
-The JAX package has no importer for FastTFN;
-:func:`state_dict_from_fasttfn_params` maps its tree as the others do.
+``params_from_fastschnet_state_dict``,
+:func:`state_dict_from_vnegnn_params` of ``params_from_vnegnn_state_dict``,
+and for the baselines ``state_dict_from_{egnn,gnn,rfvel,linear_dynamics,
+egmn,eghn,schnet}_params`` of ``params_from_{...}_state_dict``.  The JAX
+package has no importer for FastTFN or FullMLP;
+:func:`state_dict_from_fasttfn_params` and
+:func:`state_dict_from_fullmlp_params` map their trees as the others do.
 Each takes the JAX param tree as a nested dict of numpy arrays and returns
 the port's ``state_dict`` in the reference PyTorch layout:
 
@@ -202,4 +205,122 @@ def state_dict_from_gconv_params(params: Mapping, prefix: str = "") -> Dict[str,
         for bn in ("bn0", "bn1"):
             sd[f"{c}.rp.{bn}.weight"] = _t(sub["rp"][bn]["scale"])
             sd[f"{c}.rp.{bn}.bias"] = _t(sub["rp"][bn]["bias"])
+    return sd
+
+
+def _count(params: Mapping, prefix: str) -> int:
+    return sum(1 for k in params if k.startswith(prefix))
+
+
+def _base_mlp(sd: dict, prefix: str, p: Mapping) -> None:
+    """A JAX ``BaseMLP`` ``{lin0, lin1}`` -> the reference ``prefix.mlp.{0,2}``."""
+    _two(sd, f"{prefix}.mlp", p, "lin0", "lin1")
+
+
+def _egnn(sd: dict, prefix: str, params: Mapping) -> None:
+    _linear(sd, f"{prefix}embedding", params["embedding"])
+    for i in range(_count(params, "layer_")):
+        p, q = params[f"layer_{i}"], f"{prefix}layers.{i}"
+        _base_mlp(sd, f"{q}.edge_message_net.scalar_net", p["edge_message_net"]["scalar_net"])
+        for name in ("coord_net", "node_net", "node_v_net"):
+            if name in p:
+                _base_mlp(sd, f"{q}.{name}", p[name])
+
+
+def _scalar_nets(sd: dict, prefix: str, p: Mapping) -> None:
+    """An ``EquivariantScalarNet`` or ``EquivariantEdgeScalarNet``."""
+    for name in ("in_scalar_net", "out_vector_net", "out_scalar_net"):
+        if name in p:
+            _base_mlp(sd, f"{prefix}.{name}", p[name])
+
+
+def state_dict_from_egnn_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``EGNN`` ``state_dict`` for a JAX ``EGNN`` param tree (layer
+    count and ``with_v`` read from the tree)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _egnn(sd, "", params)
+    return sd
+
+
+def state_dict_from_gnn_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``GNN`` ``state_dict`` for a JAX ``GNN`` param tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "embedding", params["embedding"])
+    _two(sd, "decoder", params, "dec0", "dec1")
+    for i in range(_count(params, "layer_")):
+        for name in ("edge_message_net", "node_net"):
+            _base_mlp(sd, f"layers.{i}.{name}", params[f"layer_{i}"][name])
+    return sd
+
+
+def state_dict_from_rfvel_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``RFVel`` ``state_dict`` for a JAX ``RFVel`` param tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    for g, p in _layers(params):
+        _two(sd, f"{g}.phi", p, "phi0", "phi1")
+        _two(sd, f"{g}.coord_mlp_vel", p, "vel0", "vel1")
+    return sd
+
+
+def state_dict_from_linear_dynamics_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``LinearDynamics`` ``state_dict``: the one ``time``."""
+    return {"time": _t(params["time"])}
+
+
+def state_dict_from_egmn_params(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port ``EGMN`` ``state_dict`` (keys after ``prefix``) for a JAX
+    ``EGMN`` param tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(_count(params, "layer_")):
+        _scalar_nets(sd, f"{prefix}layers.{i}", params[f"layer_{i}"])
+    return sd
+
+
+def state_dict_from_eghn_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``EGHN`` ``state_dict`` for a JAX ``EGHN`` param tree (depths
+    and ``with_v`` read from the tree): ``embedding``, the two EGNNs
+    ``low_force_net`` / ``high_force_net``, ``low_pooling`` (its
+    ``layers.{i}`` and ``pooling.{0,2}``) and ``kinematics_net`` (an
+    ``EquivariantScalarNet``, or an ``EGMN``'s ``layers.{i}``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "embedding", params["embedding"])
+    _egnn(sd, "low_force_net.", params["low_force_net"])
+    _egnn(sd, "high_force_net.", params["high_force_net"])
+    pooling = params["low_pooling"]
+    _two(sd, "low_pooling.pooling", pooling, "pool0", "pool1")
+    for i in range(_count(pooling, "layer_")):
+        p, q = pooling[f"layer_{i}"], f"low_pooling.layers.{i}"
+        _scalar_nets(sd, f"{q}.edge_message_net", p["edge_message_net"])
+        _base_mlp(sd, f"{q}.node_net", p["node_net"])
+    kin = params["kinematics_net"]
+    if "layer_0" in kin:
+        sd.update(state_dict_from_egmn_params(kin, "kinematics_net."))
+    else:
+        _scalar_nets(sd, "kinematics_net", kin)
+    return sd
+
+
+def state_dict_from_schnet_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``SchNet`` ``state_dict`` for a JAX ``SchNet`` param tree
+    (the interaction count read from the tree)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "embedding", params["embedding"])
+    for i in range(_count(params, "interaction_")):
+        block, s = params[f"interaction_{i}"], f"interactions.{i}"
+        _two(sd, f"{s}.conv.nn", block["conv"], "nn0", "nn1")
+        _linear(sd, f"{s}.conv.lin1", block["conv"]["lin1"])
+        _linear(sd, f"{s}.conv.lin2", block["conv"]["lin2"])
+        _linear(sd, f"{s}.lin", block["lin"])
+        _linear(sd, f"coord_updates.{i}", params[f"coord_update_{i}"])
+    return sd
+
+
+def state_dict_from_fullmlp_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``FullMLP`` ``state_dict`` for a JAX ``FullMLP`` param tree:
+    ``embedding``, ``layers.{i}.mlp.{0,2}``, ``output``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "embedding", params["embedding"])
+    for i in range(_count(params, "layer_")):
+        _base_mlp(sd, f"layers.{i}", params[f"layer_{i}"])
+    _linear(sd, "output", params["output"])
     return sd

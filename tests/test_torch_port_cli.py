@@ -82,9 +82,11 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cuda"])
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "EGNN"], "item 12"),
+@pytest.mark.parametrize("flags,match", [(["--model", "GVP"], "item 12"),
                                          (["--mesh", "data=2"], "item 13"),
-                                         (["--mesh", "data=1,graph=2"], "item 13")])
+                                         (["--mesh", "data=1,graph=2"], "item 13"),
+                                         (["--model", "MLP"], "not a graph batch"),
+                                         (["--model", "EGHN"], "local bond edges")])
 def test_cli_raises_on_what_the_port_does_not_have(data, flags, match):
     with pytest.raises(ValueError, match=match):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cpu", *flags])
@@ -162,6 +164,33 @@ def test_nbody_and_protein_clis_train_the_new_models_on_the_cpu(nbody_data, prot
     assert bool(mmd_calls) == (model != "VNEGNN")
 
 
+@pytest.mark.parametrize("cli,model", [("nbody", "EGNN"), ("nbody", "GNN"), ("nbody", "RF"),
+                                       ("nbody", "Linear"), ("nbody", "SchNet"),
+                                       ("protein", "EGNN"), ("protein", "EGHN")])
+def test_nbody_and_protein_clis_train_the_baselines_on_the_cpu(nbody_data, protein_npz,
+                                                               tmp_path, cli, model,
+                                                               monkeypatch):
+    # on the MSE alone, as in the JAX CLI; the protein CLI hands EGHN the bonds
+    from fastegnn_tpu_torch.train import step as pstep
+
+    mmd_calls = []
+    monkeypatch.setattr(pstep, "mmd_loss", lambda *a, **k: mmd_calls.append(1))
+    mod, data = (pnbody, nbody_data) if cli == "nbody" else (pprotein, protein_npz)
+    best = mod.main([*data, *TRAIN, "--model", model, "--platform", "cpu",
+                     "--log_directory", str(tmp_path / "logs")])
+    assert np.isfinite(best["loss_valid"]) and best["epoch_index"] in (1, 2)
+    _, log = _logs(tmp_path / "logs")
+    assert log["epochs"] == [1, 2] and np.isfinite(log["loss_train"] + log["loss"]).all()
+    assert not mmd_calls
+
+
+@pytest.mark.parametrize("model,match", [("MLP", "not a graph batch"),
+                                         ("EGHN", "local bond edges")])
+def test_nbody_cli_raises_for_mlp_and_for_eghn(nbody_data, model, match):
+    with pytest.raises(ValueError, match=match):
+        pnbody.main([*nbody_data, *TRAIN, "--model", model, "--platform", "cpu"])
+
+
 @pytest.mark.parametrize("cli", ["nbody", "protein"])
 def test_nbody_and_protein_clis_need_a_card_unless_the_cpu_is_asked_for(
         nbody_data, protein_npz, monkeypatch, cli):
@@ -175,7 +204,9 @@ def test_nbody_and_protein_clis_need_a_card_unless_the_cpu_is_asked_for(
 
 def test_protein_cli_raises_on_what_the_port_does_not_have(protein_npz, monkeypatch):
     with pytest.raises(ValueError, match="item 12"):
-        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "EGHN"])
+        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "GVP"])
+    with pytest.raises(ValueError, match="not a graph batch"):
+        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "MLP"])
     monkeypatch.setitem(sys.modules, "MDAnalysis", None)
     with pytest.raises(ImportError, match="MDAnalysis"):
         pprotein.main([*protein_npz, "--virtual_channel", "3", "--preprocess"])
@@ -191,19 +222,49 @@ def test_equivariance_cli_passes_at_its_tolerance_and_fails_at_zero(capsys, monk
     assert peq.main(small + ["--atol", "0"]) == 1
     assert "FAILED" in capsys.readouterr().out
     with pytest.raises(ValueError, match="item 12"):
-        peq.main(small + ["--model", "EGNN"])
+        peq.main(small + ["--model", "GVP"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         peq.main(["--nodes", "8"])
 
 
-@pytest.mark.parametrize("model", ["FastRF", "FastSchNet", "FastTFN", "VNEGNN"])
+@pytest.mark.parametrize("model", ["FastRF", "FastSchNet", "FastTFN", "VNEGNN", "EGNN", "RF",
+                                   "Linear", "SchNet"])
 def test_equivariance_cli_checks_the_new_models(model, capsys):
     small = ["--nodes", "8", "--num_layer", "2", "--trials", "2", "--platform", "cpu",
              "--model", model]
     errs = peq.errors(peq.build_parser().parse_args(small))
     assert len(errs) == 2 and max(errs) <= 1e-4 and min(errs) > 0
     assert peq.main(small) == 0 and capsys.readouterr().out.count("PASS\n") == 2
+
+
+def test_equivariance_cli_takes_a_tensor_output_whole(capsys, monkeypatch):
+    # RF returns its positions as a tensor: the check reads all of them (not
+    # the first node's row) and passes; GNN is not equivariant and fails
+    import fastegnn_tpu_torch.models as pmodels
+
+    small = ["--nodes", "8", "--num_layer", "2", "--trials", "2", "--platform", "cpu"]
+    assert peq.main(small + ["--model", "RF"]) == 0
+    assert capsys.readouterr().out.count("PASS\n") == 2
+    errs = peq.errors(peq.build_parser().parse_args(small + ["--model", "GNN"]))
+    assert min(errs) > 1e-2
+    assert peq.main(small + ["--model", "GNN"]) == 1
+    assert "FAILED" in capsys.readouterr().out
+
+    # RF with every row but the first knocked out of equivariance fails:
+    # every row is read
+    class FirstRowOnly(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, g):
+            x = self.inner(g)
+            return torch.cat([x[:1], x[1:] + g.coord[1:].square()], 0)
+
+    build = pmodels.get_model
+    monkeypatch.setattr(pmodels, "get_model", lambda *a, **k: FirstRowOnly(build(*a, **k)))
+    assert peq.main(small + ["--model", "RF"]) == 1
 
 
 def test_equivariance_cli_moves_the_jax_clis_graphs(monkeypatch, capsys):
@@ -298,6 +359,7 @@ def test_the_new_cli_modules_import_without_jax():
             "import fastegnn_tpu_torch.cli.generate_nbody, fastegnn_tpu_torch.cli.equivariance\n"
             "import fastegnn_tpu_torch.data.nbody, fastegnn_tpu_torch.data.protein\n"
             "import fastegnn_tpu_torch.models.tfn, fastegnn_tpu_torch.models.vnegnn\n"
+            "import fastegnn_tpu_torch.models.basic, fastegnn_tpu_torch.models.eghn\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fastegnn_tpu.'))"
             " or m == 'fastegnn_tpu']\n"
             "assert not bad, bad\n"

@@ -29,19 +29,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _graph(device, n=150, n_graphs=2, seed=0):
+def _graph(device, n=150, n_graphs=2, seed=0, bonds=False):
+    """Random graphs; with ``bonds``, each with a chain of bonds as its
+    local edges (EGHN's input)."""
     rng = np.random.default_rng(seed)
     spec = GraphSpec(max_nodes=n, max_edges=n * (n - 1) // 4 + 8, n_graphs=n_graphs,
-                     edge_attr_dim=2)
+                     edge_attr_dim=2, max_local_edges=n - 1 if bonds else 0)
     graphs = []
     for _ in range(n_graphs):
         loc = rng.normal(size=(n, 3)).astype(np.float32)
         vel = rng.normal(size=(n, 3)).astype(np.float32) * 0.1
         dst, src = cutoff_edges_np(loc, 0.75)
         d0 = np.linalg.norm(loc[dst] - loc[src], axis=1, keepdims=True).astype(np.float32)
+        local = {}
+        if bonds:
+            bd, bs = np.arange(n - 1), np.arange(1, n)
+            length = np.linalg.norm(loc[bd] - loc[bs], axis=1, keepdims=True)
+            local = dict(local_dst=bd, local_src=bs,
+                         local_edge_attr=np.concatenate([length, length], 1))
         graphs.append(pad_graph(
             spec, node_feat=rng.normal(size=(n, 2)).astype(np.float32), coord=loc, vel=vel,
-            dst=dst, src=src, edge_attr=np.concatenate([d0, d0], 1), coord_target=loc + vel))
+            dst=dst, src=src, edge_attr=np.concatenate([d0, d0], 1), coord_target=loc + vel,
+            **local))
     return batch_graphs(graphs, spec, device=device)
 
 
@@ -349,21 +358,27 @@ def _model_on_card_matches_cpu(cuda, attention, launches):
     _card_against_cpu(g, model, cpu, launches)
 
 
+def _outputs(out):
+    """A model's output tensors (its prediction first)."""
+    return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
+
+
 def _card_against_cpu(g, model, cpu, launches):
     """One forward and MSE-like backward of ``model`` on the card batch
     ``g`` with ``launches`` (forward, backward, segment-sum) kernel
-    launches, against ``cpu`` (the same weights) on the CPU: outputs at
-    1e-4, gradients at 1e-4 of their scale."""
+    launches, against ``cpu`` (the same weights) on the CPU: every output
+    at 1e-4, gradients at 1e-4 of their scale."""
     before = (ek.FWD_LAUNCHES, ek.BWD_LAUNCHES, spmm.SEGSUM_LAUNCHES)
-    x, vx = model(g)
-    x.square().sum().backward()
+    out = _outputs(model(g))
+    out[0].square().sum().backward()
     torch.cuda.synchronize()
     after = (ek.FWD_LAUNCHES, ek.BWD_LAUNCHES, spmm.SEGSUM_LAUNCHES)
     assert tuple(a - b for a, b in zip(after, before)) == launches
-    xc, vxc = cpu(g.to("cpu"))
-    xc.square().sum().backward()
-    torch.testing.assert_close(x.detach().cpu(), xc.detach(), atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(vx.detach().cpu(), vxc.detach(), atol=1e-4, rtol=1e-4)
+    out_c = _outputs(cpu(g.to("cpu")))
+    out_c[0].square().sum().backward()
+    assert len(out) == len(out_c)
+    for a, b in zip(out, out_c):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4, rtol=1e-4)
     # each gradient against its own largest entry, floored at 1e-4 of the
     # model's largest gradient (some are rounding noise, ~1e-12)
     pairs = [(n, p.grad.cpu(), q.grad) for (n, p), q in
@@ -388,12 +403,28 @@ def _card_against_cpu(g, model, cpu, launches):
     # the fused edge block in its A2A cells, one forward and one backward
     # launch per layer
     ("VNEGNN", (2, 2, 0)),
+    # the baselines, the segment-sum only: per layer EGNN the dst mean of
+    # [f | m] forward and the gathers of [h | x] backward, GNN the same of m
+    # and h, RF of its translations and x (the first layer's gathers of the
+    # input coordinates need no backward); per SchNet interaction the
+    # coordinate mean and the CFConv's sum at src forward, the gathers of
+    # [h | x] and lin1(h) backward, less the last interaction's feature
+    # update; EGHN (2 EGNN layers per block, 2 pooling layers): 10 forward
+    # and 13 backward (chip_smoke.py::expected_launches)
+    ("EGNN", (0, 0, 2 + 4)),
+    ("GNN", (0, 0, 2 + 4)),
+    ("RF", (0, 0, 2 + 2)),
+    ("Linear", (0, 0, 0)),
+    ("SchNet", (0, 0, 3 + 5)),
+    ("EGHN", (0, 0, 10 + 13)),
 ])
 def test_new_models_on_card_match_cpu(cuda, name, launches):
     from fastegnn_tpu_torch.models import get_model
 
-    g = _graph(cuda, n=60, seed=3)
-    kw = dict(hidden=64, n_layers=2, virtual_channels=3, gravity=(0.0, -1.0, 0.0))
+    g = _graph(cuda, n=60, seed=3, bonds=name == "EGHN")
+    # get_model drops what a model does not take
+    kw = dict(hidden=64, n_layers=2, virtual_channels=3, gravity=(0.0, -1.0, 0.0),
+              num_interactions=2, layer_per_block=2, layer_pooling=2)
     model = get_model(name, 2, 2, device=cuda, generator=torch.Generator().manual_seed(0), **kw)
     cpu = get_model(name, 2, 2, device="cpu", **kw)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})

@@ -178,12 +178,26 @@ def test_get_model_builds_the_ported_models_and_raises_for_the_rest():
         assert (name in MMD_MODELS) == (name != "VNEGNN")
     assert MMD_MODELS == JAX_MMD_MODELS
     assert not hasattr(get_model("VNEGNN", 2, 2, device="cpu").A2A_0, "gravity_mlp")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_model("TFN", 2, 2, device="cpu")
+    # the baselines, with the JAX CLI's keyword arguments (SchNet keeps its 16
+    # interactions whatever n_layers says; EGHN its 3 / 4 / 2 depths)
+    built = {name: get_model(name, 2, 2, hidden=32, n_layers=1, virtual_channels=2,
+                             gravity=(0.0, -1.0, 0.0), device="cpu")
+             for name in ("EGNN", "GNN", "RF", "Linear", "SchNet", "EGHN", "MLP")}
+    assert len(built["EGNN"].layers) == len(built["GNN"].layers) == built["RF"].n_layers == 1
+    assert len(built["SchNet"].interactions) == 16 and built["SchNet"].embedding.out_features == 32
+    assert len(built["EGHN"].low_force_net.layers) == 3
+    assert len(built["EGHN"].low_pooling.layers) == 4
+    assert len(built["EGHN"].kinematics_net.layers) == 2
+    assert [p.shape for p in built["Linear"].parameters()] == [(1,)]
+    assert built["MLP"].embedding.in_features == 2 and len(built["MLP"].layers) == 1
+    assert not MMD_MODELS & set(built)
+    for name in ("TFN", "GVP", "DimeNet", "DimeNet++"):
+        with pytest.raises(ValueError, match="ROADMAP.md item 12"):
+            get_model(name, 2, 2, device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         get_model("NoSuchModel", 2, 2, device="cpu")
     # no bf16 path: raise rather than run f32 where bf16 was asked for
-    for name in ("FastRF", "FastSchNet", "FastTFN", "VNEGNN"):
+    for name in ("FastRF", "FastSchNet", "FastTFN", "VNEGNN", "EGNN", "SchNet", "EGHN"):
         with pytest.raises(ValueError, match="float32 only"):
             get_model(name, 2, 2, compute_dtype=torch.bfloat16, device="cpu")
         get_model(name, 2, 2, compute_dtype=torch.float32, device="cpu")

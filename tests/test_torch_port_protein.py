@@ -125,8 +125,33 @@ def test_splits_are_disjoint(npz):
 
 
 def test_local_edges_raise(npz):
-    with pytest.raises(ValueError, match="item 12"):
-        pprot.ProteinDataset(npz, device="cpu", with_local_edges=True, **OPTS)
+    """``with_local_edges`` once raised; its bond batches are now the JAX
+    ones (the covalent bonds with ``[topology length, frame-0 length]``
+    attributes), and a batch without them still raises in EGHN."""
+    from fastegnn_tpu_torch.models.eghn import EGHN
+
+    opts = dict(OPTS, partition="test", virtual_channels=3, max_samples=3,
+                with_local_edges=True)
+    jds = jprot.ProteinDataset(npz, **opts)
+    pds = pprot.ProteinDataset(npz, device="cpu", **opts)
+    assert jds.spec.max_local_edges == pds.spec.max_local_edges == 49
+    for a, b in zip(jds.graphs, pds.graphs):
+        assert a.keys() == b.keys() and "local_edge_attr" in b
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+    jb, pb = jds.collate([2, 0]), pds.collate([2, 0])
+    for f in ("local_dst", "local_src", "local_edge_attr", "local_edge_mask"):
+        a, b = np.asarray(getattr(jb, f)), getattr(pb, f).numpy()
+        np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=f)
+    bonds, lengths = pds.bond_edges()
+    np.testing.assert_array_equal(pb.local_edge_attr[:49, 0].numpy(), lengths)
+    np.testing.assert_array_equal(pb.local_dst[49:].numpy() - 50, bonds[:, 0])
+    model = EGHN(2, 2, hidden=16, n_cluster=3, layer_per_block=1, layer_pooling=1,
+                 device="cpu")
+    assert np.isfinite(model(pb)[0].detach().numpy()).all()
+    with pytest.raises(ValueError, match="with_local_edges=True"):
+        model(pprot.ProteinDataset(npz, device="cpu", **dict(opts, with_local_edges=False))
+              .collate([0]))
 
 
 def test_preprocess_adk_needs_mdanalysis(tmp_path, monkeypatch):
