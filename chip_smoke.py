@@ -17,9 +17,11 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    this run's inputs;
 3. a small input: the model on the card (kernels) against the model on the
    CPU (plain versions), f32 for FastEGNN's fused layer and attention layer,
-   FastRF, FastSchNet, FastTFN, VNEGNN and the baselines EGNN, GNN, RF,
-   Linear, SchNet and EGHN (these on a small protein chain with its bonds)
-   (1e-4), bf16 for the fused layer (2e-2);
+   FastRF, FastSchNet, FastTFN, VNEGNN, the baselines EGNN, GNN, RF,
+   Linear, SchNet and EGHN (these on a small protein chain with its bonds),
+   GVP, DimeNet and DimeNet++ (these two with the graph's triplet table and
+   their last linears scaled so that the largest output is 1) (1e-4), bf16
+   for the fused layer (2e-2);
 4. the main path: FastEGNN (H=64, C=3, L=4, gravity, bf16) trained with
    Adam(5e-4, 1e-12) and MMD (sigma 1, weight 0.01, sample 3, per graph) on
    the 8000-node graph, 3 warm-up + 20 timed steps, with the kernels' launch
@@ -58,7 +60,11 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    versions on that batch; trained without the MMD term), on the same
    trajectories; then the baselines EGNN, GNN, RF, Linear and SchNet (16
    interactions), on the MSE alone, the segment-sum kernel held in the
-   forms GNN and SchNet add;
+   forms GNN and SchNet add; then GVP (the mean of ``[s | V]`` at src and
+   its gathers' backwards over ``[E, 148]``), DimeNet and DimeNet++ (the
+   triplets' sum at ji over ``[T, 64]`` and the perm-form sums at kj in
+   the backward; T and the seconds to build the triplet table printed),
+   on the MSE alone, each new form held against its plain version;
 9. the protein path: the same for the protein CLI (``run_protein.sh``:
    batch 50, sigma 1.0, weight 0.5, delta_frame 15, ``--cutoff_rate 0.5``)
    on a synthetic 856-atom chain of 270 frames (151 / 50 / 52 samples),
@@ -124,6 +130,12 @@ NEW_MODELS = ("FastRF", "FastSchNet", "FastTFN", "VNEGNN")
 # on its bond-edge datasets), the equivariance CLI checks the equivariant
 # four (GNN is not equivariant); all on the MSE alone
 BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet", "EGHN")
+# GVP and DimeNet / DimeNet++ on the N-body CLI (the MSE alone), DimeNet
+# reading the batch's triplet table (graph.py::build_triplets)
+TRIPLET_MODELS = ("DimeNet", "DimeNet++")
+# all three at the N-body CLI's batch of 100: DimeNet's reckoned peak there
+# is under 60 GiB (PERF.md §5), so no batch is cut
+ZOO = ("GVP",) + TRIPLET_MODELS
 NBODY_BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet")
 EQUIVARIANT_BASELINES = ("EGNN", "RF", "Linear", "SchNet")
 # depths at the CLIs' configuration where it is not LAYERS: SchNet's 16
@@ -150,7 +162,13 @@ PER_LAYER = {"FastEGNN": ((1, 0, 0), (0, 1, 0)), "FastRF": ((1, 0, 0), (0, 1, 0)
              "FastSchNet": ((0, 0, 2), (0, 0, 2)), "FastTFN": ((0, 0, 2), (0, 0, 2)),
              "VNEGNN": ((1, 0, 0), (0, 1, 0)), "EGNN": ((0, 0, 1), (0, 0, 2)),
              "GNN": ((0, 0, 1), (0, 0, 2)), "RF": ((0, 0, 1), (0, 0, 2)),
-             "Linear": ((0, 0, 0), (0, 0, 0)), "SchNet": ((0, 0, 2), (0, 0, 3))}
+             "Linear": ((0, 0, 0), (0, 0, 0)), "SchNet": ((0, 0, 2), (0, 0, 3)),
+             "GVP": ((0, 0, 1), (0, 0, 2))}
+# DimeNet per block: the triplets' sum at ji forward; backward the
+# perm-form sums at kj of the messages' gradient, one per bilinear channel
+# (DimeNet) or one (++); besides, the num_blocks + 1 output blocks' sums
+# at src forward and the embedding's two gathers backward
+KJ_SUMS = {"DimeNet": 8, "DimeNet++": 1}
 # launches a model does not make, forward and backward: FastTFN's last
 # layer skips the edge MLP and its dst mean, which feed only the features
 # the model discards, so the gathers of [h | x] have no backward; SchNet's
@@ -185,9 +203,16 @@ EGHN_FORMS = (("bond dst f32 [El, 9]", 9, False, "bond dst"),
               ("bond src f32 [El, 73]", 73, False, "bond src"),
               ("bond dst f32 [El, 15]", 15, False, "bond dst"),
               ("dst f32 [E, 15]", 15, False, "dst"), ("src f32 [E, 15]", 15, False, "src"))
+# GVP's mean of [s | V] at src and its gathers' backwards at dst and src
+# (100 + 16 * 3 wide); DimeNet's triplets' sum at ji (over the table's
+# rowptr) and its perm-form sums at kj (DimeNet++ runs the same two forms
+# on the same batch)
+GVP_FORMS = (("dst f32 [E, 148]", 148, False, "dst"), ("src f32 [E, 148]", 148, False, "src"))
+DIMENET_FORMS = (("ji f32 [T, 64]", 64, False, "ji"), ("kj f32 [T, 64]", 64, False, "kj"))
 # each model's forms, held on its N-body or protein batch
 PATH_FORMS = {"FastSchNet": SCHNET_FORMS, "FastTFN": TFN_FORMS, "GNN": GNN_FORMS,
-              "SchNet": SCHNET_BASELINE_FORMS, "EGHN": EGHN_FORMS}
+              "SchNet": SCHNET_BASELINE_FORMS, "EGHN": EGHN_FORMS, "GVP": GVP_FORMS,
+              "DimeNet": DIMENET_FORMS}
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
 TOL = {("fwd", False): 1e-5, ("bwd", False): 5e-5,   # f32; bwd sums with atomics
        ("fwd", True): 2e-2, ("bwd", True): 2e-2}     # bf16: one bf16 ulp can flip
@@ -314,7 +339,9 @@ def segsum_phase(g, gen, forms=(("dst f32", SEGSUM_F, False, "dst"),
     N-body or protein batch (``PATH_FORMS``).  ``form`` is "dst" or "src"
     (the real edges over the dst CSR, or through ``src_perm``) or "bond dst"
     or "bond src" (the bond slots through ``local_perm`` or
-    ``local_src_perm``, EGHN's)."""
+    ``local_src_perm``, EGHN's) or "ji" or "kj" (a triplet table's rows
+    summed at their ji edge over its row pointer, or at their kj edge
+    through ``kj_perm``, DimeNet's)."""
     import torch
 
     from fastegnn_tpu_torch.ops import spmm
@@ -325,44 +352,58 @@ def segsum_phase(g, gen, forms=(("dst f32", SEGSUM_F, False, "dst"),
     # library yardsticks, timed only here: the dst form is a segment_reduce
     # over the row pointer, the src form an index_add_ at src in edge order,
     # a bond form an index_add_ at the bonds' ends in slot order (the batch
-    # must have no padded bond slot for it to be the same sum)
-    def by_dst(d):
-        return torch.segment_reduce(d, "sum", offsets=offsets)
+    # must have no padded bond slot for it to be the same sum); the ji form a
+    # segment_reduce over the triplet table's row pointer, the kj form an
+    # index_add_ at idx_kj in triplet order
+    def by_offsets(offs):
+        return lambda d: torch.segment_reduce(d, "sum", offsets=offs)
 
-    def by_ids(ids):
-        return lambda d: torch.zeros(n, d.shape[1], device=d.device).index_add_(0, ids, d)
+    def by_ids(ids, segments):
+        return lambda d: torch.zeros(segments, d.shape[1], device=d.device).index_add_(0, ids, d)
 
-    table = {"dst": (e, g.rowptr, None, by_dst), "src": (e, g.src_rowptr, g.src_perm, by_ids(src))}
+    # form -> (rows, segments, rowptr, perm, library)
+    table = {"dst": (e, n, g.rowptr, None, by_offsets(offsets)),
+             "src": (e, n, g.src_rowptr, g.src_perm, by_ids(src, n))}
     if g.local_dst is not None:
         check(bool(g.local_edge_mask.all()), "bond forms: the batch has padded bond slots")
         el = g.local_dst.shape[0]
-        table["bond dst"] = (el, g.local_rowptr, g.local_perm, by_ids(g.local_dst.long()))
-        table["bond src"] = (el, g.local_src_rowptr, g.local_src_perm, by_ids(g.local_src.long()))
+        table["bond dst"] = (el, n, g.local_rowptr, g.local_perm, by_ids(g.local_dst.long(), n))
+        table["bond src"] = (el, n, g.local_src_rowptr, g.local_src_perm,
+                             by_ids(g.local_src.long(), n))
+    if g.triplets is not None:
+        t = g.triplets
+        table["ji"] = (t.num_triplets, e, t.rowptr, None, by_offsets(t.rowptr.long()))
+        table["kj"] = (t.num_triplets, e, t.kj_rowptr, t.kj_perm, by_ids(t.idx_kj.long(), e))
+    # the rows are drawn on the card: the triplet forms have ~28 M of them
+    dgen = torch.Generator(device=g.device).manual_seed(
+        int(torch.randint(2**31, (1,), generator=gen)))
     results = {}
     for name, f, bf16, form in forms:
-        rows, rowptr, perm, library = table[form]
-        d = torch.randn(rows, f, generator=gen).to(g.device)
+        rows, segments, rowptr, perm, library = table[form]
+        d = torch.randn(rows, f, generator=dgen, device=g.device)
         if bf16:
             d = d.bfloat16()
         got = spmm.segment_sum_csr(d, rowptr, perm)
         torch.cuda.synchronize()
         want = spmm.segment_sum_csr_plain(d, rowptr, perm)
-        check(got.dtype == torch.float32 and tuple(got.shape) == (n, f)
+        check(got.dtype == torch.float32 and tuple(got.shape) == (segments, f)
               and bool(torch.isfinite(got).all()), f"segment_sum {name}: bad output")
         err = float((got - want).abs().max())
         top = float(want.abs().max())
         ms = median_ms(lambda: spmm.segment_sum_csr(d, rowptr, perm))
         plain_ms = median_ms(lambda: spmm.segment_sum_csr_plain(d, rowptr, perm))
         library_ms = median_ms(lambda: library(d))
-        b_ms, b_by = segsum_bound(rows, n, f, d.element_size(), perm is not None)
-        print(f"[{tag}] segment_sum {name} [{rows}, {f}] -> [{n}, {f}]: max_abs_err {err:.3e} "
-              f"(tol {SEGSUM_TOL:g} x {top:.3e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        b_ms, b_by = segsum_bound(rows, segments, f, d.element_size(), perm is not None)
+        print(f"[{tag}] segment_sum {name} [{rows}, {f}] -> [{segments}, {f}]: max_abs_err "
+              f"{err:.3e} (tol {SEGSUM_TOL:g} x {top:.3e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         check(err <= SEGSUM_TOL * top,
               f"{tag} segment_sum {name}: kernel and plain disagree ({err:.3e})")
         results[name] = dict(max_abs_err=err, max_rel_err=err / max(top, 1e-30), ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms)
+        del d, got, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -382,10 +423,13 @@ def expected_launches(model: str, layers, train_steps: int, forwards: int) -> di
     the two bond sums forward and the bond gathers' backwards at dst and
     src; the pooled adjacencies' sums forward (bonds and real edges) and
     the real edges' gather backward (the bonds' feeds only the cut loss,
-    which is not trained on)."""
+    which is not trained on).  DimeNet's and DimeNet++'s ``layers`` are
+    their blocks (``KJ_SUMS``)."""
     if model == "EGHN":
         block, pooling = layers
         fwd, bwd = (0, 0, 2 * block + 2 * pooling + 2), (0, 0, 4 * block + 2 * pooling + 1)
+    elif model in TRIPLET_MODELS:
+        fwd, bwd = (0, 0, 2 * layers + 1), (0, 0, KJ_SUMS[model] * layers + 2)
     else:
         f, b = PER_LAYER[model]
         skip_f, skip_b = SKIPS.get(model, ((0, 0, 0), (0, 0, 0)))
@@ -402,16 +446,20 @@ def reset_launch_counts() -> None:
 
 
 def small_batch(model: str, tmp: str):
-    """Phase 3's input on the card: the 400-node Water-3D-shaped graph, or,
-    for the baselines, two graphs of a 120-atom synthetic protein chain
-    with its bonds (the protein CLI's with_local_edges batches; on the
-    Water-3D graph the target is ``loc + vel``, which Linear predicts
-    exactly, so its gradient is 0)."""
+    """Phase 3's input on the card: the 400-node Water-3D-shaped graph (with
+    its triplet table for DimeNet), or, for the baselines, two graphs of a
+    120-atom synthetic protein chain with its bonds (the protein CLI's
+    with_local_edges batches; on the Water-3D graph the target is ``loc +
+    vel``, which Linear predicts exactly, so its gradient is 0)."""
     from fastegnn_tpu_torch.data.protein import ProteinDataset, make_synthetic_protein_npz
     from fastegnn_tpu_torch.data.synthetic_water import build_batch
+    from fastegnn_tpu_torch.graph import build_triplets
 
     if model not in BASELINES:
-        return build_batch(n_nodes=400, degree=20, seed=3, device="cuda")[0]
+        g = build_batch(n_nodes=400, degree=20, seed=3, device="cuda")[0]
+        if model in TRIPLET_MODELS:
+            g.triplets = build_triplets(g)
+        return g
     npz = f"{tmp}/small.npz"
     make_synthetic_protein_npz(npz, n_atoms=120, n_frames=30, seed=3)
     return ProteinDataset(npz, "train", device="cuda", delta_frame=5, cutoff_rate=0.5,
@@ -422,9 +470,11 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     """Phase 3: the model on the card against the model on the CPU: f32
     within 1e-4, or bf16 (FastEGNN's fused layer only) within 2e-2 of each
     output's largest value; every output (coordinates, virtual coordinates,
-    features, EGHN's cut loss) and every gradient.  A model without
-    gravity or attention drops them; SchNet and EGHN run at
-    ``SMALL_DEPTH``."""
+    features, EGHN's cut loss, GVP's output tuple) and every gradient.  A
+    model without gravity or attention drops them; SchNet and EGHN run at
+    ``SMALL_DEPTH``.  DimeNet's zero-initialised last linears are drawn
+    afresh and scaled so that its largest output is 1: the basis near d = 0
+    makes it ~1e7 on this graph, where 1e-4 would be below f32 rounding."""
     import numpy as np
     import torch
 
@@ -439,9 +489,17 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     # get_model drops the keyword arguments a model does not take
     kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2, gravity=(0.0, -1.0, 0.0),
               attention=attention, compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-              num_interactions=2, layer_per_block=2, layer_pooling=2)
+              num_interactions=2, layer_per_block=2, layer_pooling=2, num_blocks=2)
     gpu = get_model(model, 2, 2, device="cuda", generator=gen, **kw)
     cpu = get_model(model, 2, 2, device="cpu", **kw)
+    if model in TRIPLET_MODELS:
+        with torch.no_grad():
+            lins = [b.lin.weight for b in gpu.output_blocks]
+            for w in lins:
+                w.copy_(torch.randn(w.shape, generator=gen))
+            top = float(gpu(g).abs().max())
+            for w in lins:
+                w.div_(top)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     gc = g.to("cpu")
     outs, launches = [], None
@@ -450,8 +508,7 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     for net, batch in ((gpu, g), (cpu, gc)):
         out = net(batch)
         masked_mse(prediction(out), batch.coord_target, batch.node_mask).backward()
-        outs.append(([t.detach().cpu() for t in (out if isinstance(out, tuple) else (out,))
-                      if t is not None],
+        outs.append(([t.detach().cpu() for t in flat_outputs(out)],
                      {k: p.grad.detach().cpu() for k, p in net.named_parameters()
                       if p.grad is not None}))
         if launches is None:   # the card's run
@@ -488,6 +545,14 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
           f"{worst}) {err_g:.3e} (tol {tol:g}); launches {launches}", flush=True)
     check(np.isfinite(errs + [err_g]).all(), "small: bad output")
     check(max(errs + [err_g]) <= tol, "small: card and CPU disagree")
+
+
+def flat_outputs(out) -> list:
+    """A model's output tensors, nested tuples flattened (its prediction
+    first)."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in flat_outputs(o)]
+    return [] if out is None else [out]
 
 
 def train_path_phase(g, n_real, tag: str, attention: bool, bf16: bool, per_step: dict):
@@ -776,6 +841,7 @@ def training_cli_phase(tag: str, args, sets):
     import torch
 
     from fastegnn_tpu_torch.cli.common import run_training
+    from fastegnn_tpu_torch.graph import build_triplets
     from fastegnn_tpu_torch.models import MMD_MODELS
     from fastegnn_tpu_torch.train.step import make_train_step
 
@@ -814,6 +880,16 @@ def training_cli_phase(tag: str, args, sets):
           f"{1e3 * sum(ev) / len(ev):.3f} ms per batch", flush=True)
 
     g = dtr.collate(list(range(args.batch_size)))
+    trip = {}
+    if args.model in TRIPLET_MODELS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.triplets = build_triplets(g)
+        torch.cuda.synchronize()
+        trip = dict(triplets=g.triplets.num_triplets, triplet_build_s=time.perf_counter() - t0)
+        print(f"[{tag}] triplet table of the {g.n_real_edges}-edge batch: T = "
+              f"{trip['triplets']} ({trip['triplets'] / g.n_real_edges:.1f} per edge), built in "
+              f"{trip['triplet_build_s']:.4f} s", flush=True)
     step = make_train_step(run.model, run.optimizer, sigma=args.sigma, weight=args.weight,
                            sample=args.sample, per_graph_sampling=False, use_mmd=use_mmd,
                            generator=torch.Generator(device="cuda").manual_seed(2))
@@ -831,8 +907,9 @@ def training_cli_phase(tag: str, args, sets):
     numbers = dict(step_ms=step_ms, M_edge_messages_per_s=rate,
                    device_ms_per_step=prof[0] if prof else None,
                    busy_share=prof[1] if prof else None, peak_device_gib=peak_gib,
-                   collate_ms=1e3 * sum(collate) / len(collate),
-                   nodes=g.num_nodes, real_edges=g.n_real_edges, padded_edges=g.num_edges)
+                   collate_ms=1e3 * sum(collate) / len(collate), batch=args.batch_size,
+                   nodes=g.num_nodes, real_edges=g.n_real_edges, padded_edges=g.num_edges,
+                   **trip)
     return launches, kern, numbers
 
 
@@ -891,7 +968,8 @@ def nbody_phase(tmp: str):
     print(f"[nbody] datasets in {time.perf_counter() - t0:.2f} s: sizes {[len(d) for d in sets]}, "
           f"nodes {sets[0].spec.max_nodes}, edges per graph {sets[0].spec.max_edges}, real "
           f"edges per node {edges_per_node(sets)}", flush=True)
-    runs = each_model("nbody", parse, sets, ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES)
+    runs = each_model("nbody", parse, sets,
+                      ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES + ZOO)
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
     return runs
 
@@ -1013,7 +1091,7 @@ def main() -> int:
     small_model_phase(attention=False)
     small_model_phase(attention=True)
     small_model_phase(attention=False, bf16=True)
-    for model in NEW_MODELS + BASELINES:
+    for model in NEW_MODELS + BASELINES + ZOO:
         small_model_phase(attention=False, model=model)
     launches, step_ms, rate = train_path_phase(
         g, n_real, "main", attention=False, bf16=True,

@@ -4,7 +4,9 @@ The flags and their defaults are the JAX package's.  ``--model`` takes the
 models of ``models/__init__.py::MODEL_REGISTRY`` that train on a graph
 batch; those of ``MMD_MODELS`` train with the MMD loss, the others on the
 MSE alone, as in the JAX CLI.  EGHN needs a dataset with bond edges (the
-protein CLI's); its cut loss is not added to the loss.  ``--model MLP``
+protein CLI's); its cut loss is not added to the loss.  DimeNet and
+DimeNet++ train on the splits wrapped in ``TripletDataset``, whose batches
+carry their triplet tables, as the JAX CLI wraps them.  ``--model MLP``
 raises, as the JAX CLI fails on it: ``FullMLP`` takes an array, not a
 graph batch.  What the port does not have raises instead of falling back:
 the rest of the JAX registry, a ``--compute_dtype bfloat16`` for a model
@@ -86,7 +88,7 @@ class Training:
 
 def run_training(args, dataset_train, dataset_valid, dataset_test,
                  per_graph_sampling: bool, gravity=None) -> Training:
-    from fastegnn_tpu_torch.models import MMD_MODELS, get_model
+    from fastegnn_tpu_torch.models import MMD_MODELS, TRIPLET_MODELS, TripletDataset, get_model
     from fastegnn_tpu_torch.train.loop import train
     from fastegnn_tpu_torch.train.optim import torch_adam
     from fastegnn_tpu_torch.utils.seed import fix_seed
@@ -101,9 +103,13 @@ def run_training(args, dataset_train, dataset_valid, dataset_test,
     if args.model == "EGHN" and spec.max_local_edges == 0:
         raise ValueError("EGHN needs local bond edges: construct the dataset with "
                          "with_local_edges=True")
+    if args.model in TRIPLET_MODELS:
+        dataset_train, dataset_valid, dataset_test = (
+            TripletDataset(d) for d in (dataset_train, dataset_valid, dataset_test))
     model = get_model(
         args.model, spec.node_feat_dim, spec.edge_attr_dim, hidden=args.dim_hidden,
         virtual_channels=args.virtual_channel, n_layers=args.num_layer,
+        num_blocks=args.num_layer,
         attention=args.attention_required,
         normalize=args.direction_vector_normalize_required, tanh=args.tanh_required,
         gravity=gravity, compute_dtype=getattr(torch, args.compute_dtype),

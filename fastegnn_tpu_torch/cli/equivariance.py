@@ -11,10 +11,13 @@ and a random translation per trial (``equivariant_test.py:38-62``); the
 graph and the rotations come from the same numpy stream as the JAX CLI's.
 :func:`errors` gives each trial's error; :func:`main` prints them and
 returns 0 when every trial passes, else 1 (GNN, which is not equivariant,
-fails).  The prediction is the model's output or its tuple's first entry,
-as in the JAX CLI.  It runs on the card (the f32 edge kernels for
-FastEGNN, FastRF and VNEGNN, the segment-sum kernel for the others) unless
-``--platform cpu`` is given; TF32 stays off.
+fails, and so does GVP, which reads absolute positions: rotation- but not
+translation-equivariant).  DimeNet and DimeNet++ raise: they read a
+triplet table, which this graph does not carry, as the JAX CLI cannot
+feed them either.  The prediction is the model's output or its tuple's
+first entry, as in the JAX CLI.  It runs on the card (the f32 edge
+kernels for FastEGNN, FastRF and VNEGNN, the segment-sum kernel for the
+others) unless ``--platform cpu`` is given; TF32 stays off.
 
 Usage: python -m fastegnn_tpu_torch.cli.equivariance [--nodes 10] [--platform cpu]
 """

@@ -33,6 +33,10 @@ dst, ``local_perm``, with its row pointer ``local_rowptr`` [N + 1], and
 the same by src, ``local_src_perm`` / ``local_src_rowptr``, so that the
 bond sums and the bond gathers' backwards run on the segment-sum kernel's
 perm form without reordering the bonds.
+
+A batch for DimeNet carries its triplet table (:class:`Triplets`, built by
+:func:`build_triplets` from the batch's own CSR tables on the batch's
+device; ``models/dimenet.py::TripletDataset`` attaches it).
 """
 
 from __future__ import annotations
@@ -56,6 +60,36 @@ class GraphSpec:
     node_attr_dim: int = 1
     virtual_channels: int = 3
     max_local_edges: int = 0      # capacity for local (bond) edges (EGHN)
+
+
+@dataclasses.dataclass
+class Triplets:
+    """DimeNet's ``k -> j -> i`` triplets of a batch's real edges (reference
+    ``DimeNet.py:559-582``): each real edge ``ji`` (``j = dst``, ``i = src``)
+    paired with every real edge ``kj`` whose src is ``j``, except the one
+    whose dst is ``i``.  The table holds exactly the real triplets, sorted
+    by ``idx_ji`` and, within an edge, by ``idx_kj``: the JAX table's real
+    prefix (``fastegnn_tpu/models/dimenet.py::build_triplets``) without its
+    capacity padding.  ``rowptr`` [E_real + 1] is the row pointer of
+    ``idx_ji``; ``kj_perm`` the stable argsort of ``idx_kj`` and
+    ``kj_rowptr`` its row pointer, so that sums at either edge run on the
+    segment-sum kernel."""
+
+    idx_i: torch.Tensor       # [T] int32 node i
+    idx_j: torch.Tensor       # [T] int32 node j
+    idx_k: torch.Tensor       # [T] int32 node k
+    idx_kj: torch.Tensor      # [T] int32 edge k -> j
+    idx_ji: torch.Tensor      # [T] int32 edge j -> i, non-decreasing
+    rowptr: torch.Tensor      # [E_real + 1] int32 row pointer of idx_ji
+    kj_perm: torch.Tensor     # [T] int32 stable argsort of idx_kj
+    kj_rowptr: torch.Tensor   # [E_real + 1] int32 its row pointer
+
+    @property
+    def num_triplets(self) -> int:
+        return self.idx_ji.shape[0]
+
+    def _apply(self, fn) -> "Triplets":
+        return Triplets(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
@@ -94,6 +128,7 @@ class GraphBatch:
     local_rowptr: Optional[torch.Tensor] = None      # [N + 1] int32 its row pointer
     local_src_perm: Optional[torch.Tensor] = None    # [El_real] int32 real bonds by src
     local_src_rowptr: Optional[torch.Tensor] = None  # [N + 1] int32 its row pointer
+    triplets: Optional[Triplets] = None              # DimeNet's (build_triplets)
 
     @property
     def num_nodes(self) -> int:
@@ -111,7 +146,8 @@ class GraphBatch:
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            out[f.name] = fn(v) if isinstance(v, torch.Tensor) else v
+            out[f.name] = (fn(v) if isinstance(v, torch.Tensor)
+                           else v._apply(fn) if isinstance(v, Triplets) else v)
         return GraphBatch(**out)
 
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
@@ -332,3 +368,30 @@ def batch_graphs(
         virtual_fibonacci=fib,
         **local,
     )
+
+
+def build_triplets(graph: GraphBatch) -> Triplets:
+    """The batch's :class:`Triplets`, on its device, from its tables: for a
+    real edge ``e`` with ``j = dst[e]`` and ``i = src[e]``, its triplets
+    are the real edges ``src_perm[src_rowptr[j]:src_rowptr[j + 1]]`` (those
+    whose src is ``j``, in edge order, as ``src_perm`` is a stable argsort)
+    less those whose dst is ``i``."""
+    dev, ne = graph.device, graph.n_real_edges
+    dst, src = graph.dst[:ne].long(), graph.src[:ne].long()
+    src_rowptr = graph.src_rowptr.long()
+    start = src_rowptr[dst]
+    count = src_rowptr[dst + 1] - start
+    total = int(count.sum())
+    e_rep = torch.repeat_interleave(torch.arange(ne, device=dev), count, output_size=total)
+    first = torch.cumsum(count, 0) - count
+    kj = graph.src_perm.long()[torch.arange(total, device=dev) - first[e_rep] + start[e_rep]]
+    keep = dst[kj] != src[e_rep]
+    ji, kj = e_rep[keep], kj[keep]
+    kj_sorted, kj_perm = torch.sort(kj, stable=True)
+    bounds = torch.arange(ne + 1, device=dev)
+    i32 = torch.int32
+    return Triplets(
+        idx_i=src[ji].to(i32), idx_j=dst[ji].to(i32), idx_k=dst[kj].to(i32),
+        idx_kj=kj.to(i32), idx_ji=ji.to(i32),
+        rowptr=torch.searchsorted(ji, bounds).to(i32), kj_perm=kj_perm.to(i32),
+        kj_rowptr=torch.searchsorted(kj_sorted, bounds).to(i32))

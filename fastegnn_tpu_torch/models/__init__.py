@@ -5,8 +5,10 @@ constructors, ``MMD_MODELS`` is the Fast* family that trains with the MMD
 virtual-node loss (reference ``utils/train.py:111-112``) and
 ``MODEL_KWARGS`` the keyword arguments each constructor takes beside
 ``node_feat_dim``, ``edge_attr_dim``, ``device`` and ``generator`` (the
-JAX package's sets).  ``NOT_YET_PORTED`` are the JAX registry's names the
-port does not have yet (ROADMAP.md item 12); they raise.
+JAX package's sets).  ``TRIPLET_MODELS`` read the batch's triplet table
+(their datasets are wrapped in ``TripletDataset``).  ``NOT_YET_PORTED``
+are the JAX registry's names the port does not have yet (ROADMAP.md item
+12); they raise.
 :func:`get_model` drops the others, as the JAX package's does, except a
 ``compute_dtype`` other than f32 for a model without a bf16 path, which
 raises: the card does not run a precision the caller did not ask for.
@@ -17,9 +19,11 @@ from __future__ import annotations
 import torch
 
 from fastegnn_tpu_torch.models.basic import EGNN, GNN, FullMLP, LinearDynamics, RFVel
+from fastegnn_tpu_torch.models.dimenet import DimeNet, DimeNetPlusPlus, TripletDataset
 from fastegnn_tpu_torch.models.eghn import EGHN
 from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
 from fastegnn_tpu_torch.models.fast_rf import FastRF
+from fastegnn_tpu_torch.models.gvp import GVPNet
 from fastegnn_tpu_torch.models.schnet import FastSchNet, SchNet
 from fastegnn_tpu_torch.models.tfn import FastTFN
 from fastegnn_tpu_torch.models.vnegnn import VNEGNN
@@ -40,10 +44,17 @@ MODEL_REGISTRY = {
     # takes an array, not a graph batch: no training CLI feeds it
     "MLP": FullMLP,
     "SchNet": SchNet,
+    # returns (coord_pred, (s, V))
+    "GVP": GVPNet,
+    # read the batch's triplet table: their datasets are wrapped in
+    # TripletDataset (cli/common.py::run_training does it)
+    "DimeNet": DimeNet,
+    "DimeNet++": DimeNetPlusPlus,
 }
+TRIPLET_MODELS = ("DimeNet", "DimeNet++")
 
 # the JAX registry's other names: the rest of ROADMAP.md item 12
-NOT_YET_PORTED = ("TFN", "GVP", "DimeNet", "DimeNet++")
+NOT_YET_PORTED = ("TFN",)
 
 MMD_MODELS = {"FastEGNN", "FastRF", "FastTFN", "FastSchNet"}
 
@@ -65,6 +76,10 @@ MODEL_KWARGS = {
     # the JAX CLI fixes SchNet at 16 interactions whatever --num_layer says
     # (main_nbody.py:129)
     "SchNet": {"hidden", "num_interactions", "num_filters", "num_gaussians", "cutoff"},
+    "GVP": {"n_layers", "node_h_dim", "edge_h_dim", "drop_rate"},
+    # the JAX CLI sets num_blocks = --num_layer (main_nbody.py:124-127)
+    "DimeNet": {"hidden", "num_blocks"},
+    "DimeNet++": {"hidden", "num_blocks"},
 }
 
 
@@ -73,8 +88,7 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
     """The model ``name`` built with the keyword arguments it takes."""
     if name in NOT_YET_PORTED:
         raise ValueError(f"model {name!r} is not ported yet: what is left of ROADMAP.md "
-                         "item 12 is GVP, DimeNet and DimeNet++ (with triplets) and the TFN "
-                         "family (--model TFN)")
+                         "item 12 is the TFN family (--model TFN)")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     allowed = MODEL_KWARGS[name]
@@ -86,6 +100,7 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
                                 generator=generator, **kwargs)
 
 
-__all__ = ["EGHN", "EGNN", "GNN", "FastEGNN", "FastRF", "FastSchNet", "FastTFN", "FullMLP",
-           "LinearDynamics", "RFVel", "SchNet", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS",
-           "MODEL_KWARGS", "NOT_YET_PORTED", "get_model"]
+__all__ = ["DimeNet", "DimeNetPlusPlus", "EGHN", "EGNN", "GNN", "GVPNet", "FastEGNN", "FastRF",
+           "FastSchNet", "FastTFN", "FullMLP", "LinearDynamics", "RFVel", "SchNet",
+           "TripletDataset", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS", "MODEL_KWARGS",
+           "NOT_YET_PORTED", "TRIPLET_MODELS", "get_model"]

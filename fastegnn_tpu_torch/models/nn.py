@@ -14,7 +14,9 @@ explicit generator:
   zero biases (reference ``models/SchNet.py:282-289, 316-319``);
 - the TFN radial profiles' linears (:func:`he_linear`) He-uniform weights,
   bound sqrt(6 / fan_in), with torch's default bias (the JAX package's
-  ``RadialFunc``); a module's own parameters are drawn by its
+  ``RadialFunc``); a linear with an ``init_weight(weight, generator)``
+  draws its weight with it (DimeNet's glorot-orthogonal, uniform and zero
+  weights); a module's own parameters are drawn by its
   ``draw_parameters_(generator)``, where it has one.
 """
 
@@ -63,16 +65,18 @@ def he_linear(in_dim: int, out: int) -> nn.Linear:
 def init_parameters_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Re-draw every ``nn.Linear`` of ``module`` with torch's default
     initialisation (or xavier with the layer's ``xavier_gain``, He-uniform
-    where it has ``he_uniform``, and a zero bias where it has
-    ``zero_bias``) from ``generator``, and the parameters of every module
-    with a ``draw_parameters_``."""
+    where it has ``he_uniform``, its own ``init_weight`` where it has one,
+    and a zero bias where it has ``zero_bias``) from ``generator``, and the
+    parameters of every module with a ``draw_parameters_``."""
     for m in module.modules():
         if hasattr(m, "draw_parameters_"):
             m.draw_parameters_(generator)
         if not isinstance(m, nn.Linear):
             continue
         gain = getattr(m, "xavier_gain", None)
-        if gain is not None:
+        if hasattr(m, "init_weight"):
+            m.init_weight(m.weight, generator)
+        elif gain is not None:
             nn.init.xavier_uniform_(m.weight, gain=gain, generator=generator)
         elif getattr(m, "he_uniform", False):
             bound = math.sqrt(6.0 / m.in_features)

@@ -7,9 +7,11 @@ of ``params_from_reference_state_dict`` (FastEGNN),
 :func:`state_dict_from_fastschnet_params` of
 ``params_from_fastschnet_state_dict``,
 :func:`state_dict_from_vnegnn_params` of ``params_from_vnegnn_state_dict``,
-and for the baselines ``state_dict_from_{egnn,gnn,rfvel,linear_dynamics,
-egmn,eghn,schnet}_params`` of ``params_from_{...}_state_dict``.  The JAX
-package has no importer for FastTFN or FullMLP;
+for the baselines ``state_dict_from_{egnn,gnn,rfvel,linear_dynamics,
+egmn,eghn,schnet}_params`` of ``params_from_{...}_state_dict``, and
+:func:`state_dict_from_gvpnet_params` / :func:`state_dict_from_dimenet_params`
+of ``params_from_gvpnet_state_dict`` / ``params_from_dimenet_state_dict``.
+The JAX package has no importer for FastTFN or FullMLP;
 :func:`state_dict_from_fasttfn_params` and
 :func:`state_dict_from_fullmlp_params` map their trees as the others do.
 Each takes the JAX param tree as a nested dict of numpy arrays and returns
@@ -323,4 +325,76 @@ def state_dict_from_fullmlp_params(params: Mapping) -> Dict[str, torch.Tensor]:
     for i in range(_count(params, "layer_")):
         _base_mlp(sd, f"layers.{i}", params[f"layer_{i}"])
     _linear(sd, "output", params["output"])
+    return sd
+
+
+def _gvp_cell(sd: dict, prefix: str, p: Mapping) -> None:
+    """A JAX ``GVPCell`` ``{wh, ws, wv}``."""
+    for name in ("wh", "ws", "wv"):
+        _linear(sd, f"{prefix}.{name}", p[name])
+
+
+def _tuple_ln(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.scalar_norm.weight"] = _t(p["scalar_norm"]["scale"])
+    sd[f"{prefix}.scalar_norm.bias"] = _t(p["scalar_norm"]["bias"])
+
+
+def state_dict_from_gvpnet_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``GVPNet`` ``state_dict`` for a JAX ``GVPNet`` param tree
+    (depths read from the tree): ``W_v`` / ``W_e`` / ``W_out`` as ``.0``
+    (tuple LayerNorm) and ``.1`` (GVP), ``layers.{i}.conv.message_func.{j}``,
+    ``layers.{i}.norm.{0,1}``, ``layers.{i}.ff_func.{j}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, key in (("W_v", "wv"), ("W_e", "we"), ("W_out", "out")):
+        _tuple_ln(sd, f"{name}.0", params[f"{key}_norm"])
+        _gvp_cell(sd, f"{name}.1", params[f"{key}_gvp"])
+    for i in range(_count(params, "layer_")):
+        p, q = params[f"layer_{i}"], f"layers.{i}"
+        for j in range(_count(p["conv"], "message")):
+            _gvp_cell(sd, f"{q}.conv.message_func.{j}", p["conv"][f"message{j}"])
+        for j in range(2):
+            _tuple_ln(sd, f"{q}.norm.{j}", p[f"norm{j}"])
+        for j in range(_count(p, "ff")):
+            _gvp_cell(sd, f"{q}.ff_func.{j}", p[f"ff{j}"])
+    return sd
+
+
+def dimenet_output_block(sd: dict, prefix: str, p: Mapping) -> None:
+    """A JAX DimeNet ``OutputBlock`` / ``OutputPPBlock``: ``lin_rbf``,
+    ``lin_up`` (++), ``lin_{i}`` -> ``lins.{i}``, ``lin_out`` -> ``lin``."""
+    for name in ("lin_rbf", "lin_up"):
+        if name in p:
+            _linear(sd, f"{prefix}.{name}", p[name])
+    for i in range(sum(1 for k in p if k[4:].isdigit())):
+        _linear(sd, f"{prefix}.lins.{i}", p[f"lin_{i}"])
+    _linear(sd, f"{prefix}.lin", p["lin_out"])
+
+
+def dimenet_interaction_block(sd: dict, prefix: str, p: Mapping) -> None:
+    """A JAX DimeNet ``InteractionBlock`` / ``InteractionPPBlock``: its
+    linears and ``W`` under their names, ``res_{before,after}_{i}`` ->
+    ``layers_{before,after}_skip.{i}``."""
+    for name, sub in p.items():
+        if name == "W":
+            sd[f"{prefix}.W"] = _t(sub)
+        elif name.startswith("res_"):
+            _, stack, i = name.split("_")
+            for lin in ("lin1", "lin2"):
+                _linear(sd, f"{prefix}.layers_{stack}_skip.{i}.{lin}", sub[lin])
+        else:
+            _linear(sd, f"{prefix}.{name}", sub)
+
+
+def state_dict_from_dimenet_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``DimeNet`` (or DimeNet++, told by its output blocks'
+    ``lin_up``) ``state_dict`` for a JAX ``DimeNet`` param tree: ``rbf.freq``,
+    ``emb.{emb,lin_rbf,lin}``, ``output_blocks.{b}`` and
+    ``interaction_blocks.{b}``."""
+    sd: Dict[str, torch.Tensor] = {"rbf.freq": _t(params["bessel_freq"])}
+    for name, key in (("emb", "emb"), ("lin_rbf", "emb_lin_rbf"), ("lin", "emb_lin")):
+        _linear(sd, f"emb.{name}", params[key])
+    for b in range(_count(params, "output_")):
+        dimenet_output_block(sd, f"output_blocks.{b}", params[f"output_{b}"])
+    for b in range(_count(params, "interaction_")):
+        dimenet_interaction_block(sd, f"interaction_blocks.{b}", params[f"interaction_{b}"])
     return sd

@@ -82,7 +82,7 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cuda"])
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "GVP"], "item 12"),
+@pytest.mark.parametrize("flags,match", [(["--model", "TFN"], "item 12"),
                                          (["--mesh", "data=2"], "item 13"),
                                          (["--mesh", "data=1,graph=2"], "item 13"),
                                          (["--model", "MLP"], "not a graph batch"),
@@ -184,6 +184,38 @@ def test_nbody_and_protein_clis_train_the_baselines_on_the_cpu(nbody_data, prote
     assert not mmd_calls
 
 
+@pytest.mark.parametrize("cli,model", [("nbody", "GVP"), ("nbody", "DimeNet"),
+                                       ("protein", "DimeNet")])
+def test_nbody_and_protein_clis_train_gvp_and_dimenet_on_the_cpu(nbody_data, protein_npz,
+                                                                 tmp_path, cli, model,
+                                                                 monkeypatch):
+    # on the MSE alone; DimeNet's splits carry their triplet tables, built
+    # once per batch: 2 train batches per epoch (shuffled, so collated
+    # afresh) and the eval batches once (the collate cache keeps them)
+    from fastegnn_tpu_torch.graph import build_triplets
+    from fastegnn_tpu_torch.models import dimenet as pdn
+    from fastegnn_tpu_torch.train import step as pstep
+
+    mmd_calls, builds = [], []
+    monkeypatch.setattr(pstep, "mmd_loss", lambda *a, **k: mmd_calls.append(1))
+    monkeypatch.setattr(pdn, "build_triplets", lambda g: builds.append(1) or build_triplets(g))
+    mod, data = (pnbody, nbody_data) if cli == "nbody" else (pprotein, protein_npz)
+    best = mod.main([*data, *TRAIN, "--model", model, "--platform", "cpu",
+                     "--log_directory", str(tmp_path / "logs")])
+    assert np.isfinite(best["loss_valid"]) and best["epoch_index"] in (1, 2)
+    _, log = _logs(tmp_path / "logs")
+    assert log["epochs"] == [1, 2] and np.isfinite(log["loss_train"] + log["loss"]).all()
+    assert not mmd_calls
+    assert len(builds) == (2 * 2 + 1 + 1 if model.startswith("DimeNet") else 0)
+
+
+@pytest.mark.parametrize("model", ["GVP", "DimeNet", "DimeNet++"])
+def test_new_models_refuse_bfloat16(nbody_data, model):
+    with pytest.raises(ValueError, match="float32 only"):
+        pnbody.main([*nbody_data, *TRAIN, "--model", model, "--platform", "cpu",
+                     "--compute_dtype", "bfloat16"])
+
+
 @pytest.mark.parametrize("model,match", [("MLP", "not a graph batch"),
                                          ("EGHN", "local bond edges")])
 def test_nbody_cli_raises_for_mlp_and_for_eghn(nbody_data, model, match):
@@ -204,7 +236,7 @@ def test_nbody_and_protein_clis_need_a_card_unless_the_cpu_is_asked_for(
 
 def test_protein_cli_raises_on_what_the_port_does_not_have(protein_npz, monkeypatch):
     with pytest.raises(ValueError, match="item 12"):
-        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "GVP"])
+        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "TFN"])
     with pytest.raises(ValueError, match="not a graph batch"):
         pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "MLP"])
     monkeypatch.setitem(sys.modules, "MDAnalysis", None)
@@ -222,7 +254,7 @@ def test_equivariance_cli_passes_at_its_tolerance_and_fails_at_zero(capsys, monk
     assert peq.main(small + ["--atol", "0"]) == 1
     assert "FAILED" in capsys.readouterr().out
     with pytest.raises(ValueError, match="item 12"):
-        peq.main(small + ["--model", "GVP"])
+        peq.main(small + ["--model", "TFN"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         peq.main(["--nodes", "8"])
@@ -236,6 +268,18 @@ def test_equivariance_cli_checks_the_new_models(model, capsys):
     errs = peq.errors(peq.build_parser().parse_args(small))
     assert len(errs) == 2 and max(errs) <= 1e-4 and min(errs) > 0
     assert peq.main(small) == 0 and capsys.readouterr().out.count("PASS\n") == 2
+
+
+def test_equivariance_cli_fails_gvp_and_refuses_dimenet(capsys):
+    # GVP reads absolute positions: rotation-equivariant, not translation;
+    # DimeNet needs triplets, which the check's graph does not carry (the
+    # JAX CLI fails on it too)
+    small = ["--nodes", "8", "--num_layer", "2", "--trials", "2", "--platform", "cpu"]
+    assert peq.main(small + ["--model", "GVP"]) == 1
+    assert capsys.readouterr().out.count("FAIL\n") == 2
+    for model in ("DimeNet", "DimeNet++"):
+        with pytest.raises(ValueError, match="triplet table"):
+            peq.main(small + ["--model", model])
 
 
 def test_equivariance_cli_takes_a_tensor_output_whole(capsys, monkeypatch):
@@ -360,6 +404,7 @@ def test_the_new_cli_modules_import_without_jax():
             "import fastegnn_tpu_torch.data.nbody, fastegnn_tpu_torch.data.protein\n"
             "import fastegnn_tpu_torch.models.tfn, fastegnn_tpu_torch.models.vnegnn\n"
             "import fastegnn_tpu_torch.models.basic, fastegnn_tpu_torch.models.eghn\n"
+            "import fastegnn_tpu_torch.models.gvp, fastegnn_tpu_torch.models.dimenet\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fastegnn_tpu.'))"
             " or m == 'fastegnn_tpu']\n"
             "assert not bad, bad\n"

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from fastegnn_tpu_torch.graph import GraphSpec, batch_graphs, pad_graph
+from fastegnn_tpu_torch.graph import GraphSpec, batch_graphs, build_triplets, pad_graph
 from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
 from fastegnn_tpu_torch.ops import edge_kernel as ek, spmm
 from fastegnn_tpu_torch.ops.neighbors import cutoff_edges_np
@@ -359,8 +359,11 @@ def _model_on_card_matches_cpu(cuda, attention, launches):
 
 
 def _outputs(out):
-    """A model's output tensors (its prediction first)."""
-    return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
+    """A model's output tensors, nested tuples flattened (its prediction
+    first)."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in _outputs(o)]
+    return [] if out is None else [out]
 
 
 def _card_against_cpu(g, model, cpu, launches):
@@ -417,18 +420,69 @@ def _card_against_cpu(g, model, cpu, launches):
     ("Linear", (0, 0, 0)),
     ("SchNet", (0, 0, 3 + 5)),
     ("EGHN", (0, 0, 10 + 13)),
+    # per layer the mean of [s | V] at src forward, the gathers of [s | V]
+    # at dst and src backward
+    ("GVP", (0, 0, 2 + 4)),
+    # per block the triplets' sum at ji forward and the perm-form sums at kj
+    # backward (one per bilinear channel, or one for ++), the output
+    # blocks' sums at src forward and the embedding's gathers backward
+    ("DimeNet", (0, 0, 2 + 3 + 2 * 8 + 2)),
+    ("DimeNet++", (0, 0, 2 + 3 + 2 * 1 + 2)),
 ])
 def test_new_models_on_card_match_cpu(cuda, name, launches):
-    from fastegnn_tpu_torch.models import get_model
+    from fastegnn_tpu_torch.models import TRIPLET_MODELS, get_model
 
     g = _graph(cuda, n=60, seed=3, bonds=name == "EGHN")
     # get_model drops what a model does not take
     kw = dict(hidden=64, n_layers=2, virtual_channels=3, gravity=(0.0, -1.0, 0.0),
-              num_interactions=2, layer_per_block=2, layer_pooling=2)
+              num_interactions=2, layer_per_block=2, layer_pooling=2, num_blocks=2)
     model = get_model(name, 2, 2, device=cuda, generator=torch.Generator().manual_seed(0), **kw)
     cpu = get_model(name, 2, 2, device="cpu", **kw)
+    if name in TRIPLET_MODELS:
+        g.triplets = build_triplets(g)
+        _scale_dimenet_output(model, g)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     _card_against_cpu(g, model, cpu, launches)
+
+
+@torch.no_grad()
+def _scale_dimenet_output(model, g):
+    """Draw DimeNet's zero-initialised last linears afresh and scale them so
+    that the largest output is 1 (the basis near d = 0 makes it ~1e7 on
+    these graphs, where 1e-4 would be below f32 rounding)."""
+    gen = torch.Generator().manual_seed(2)
+    lins = [b.lin.weight for b in model.output_blocks]
+    for w in lins:
+        w.copy_(torch.randn(w.shape, generator=gen))
+    top = float(model(g).abs().max())
+    for w in lins:
+        w.div_(top)
+
+
+def test_gvp_and_dimenet_symmetries_on_the_card(cuda):
+    # GVP rotation-equivariant (it reads absolute positions, so not
+    # translation-equivariant); DimeNet rotation- and translation-invariant
+    from fastegnn_tpu_torch.models import get_model
+    from fastegnn_tpu_torch.ops.rotation import random_rotation
+
+    g = _graph(cuda, n=60, seed=4)
+    g.triplets = build_triplets(g)
+    R = torch.tensor(random_rotation(np.random.default_rng(5)), dtype=torch.float32,
+                     device=cuda)
+    t = torch.tensor([0.5, -1.0, 2.0], device=cuda)
+    moved = g.to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        gvp = get_model("GVP", 2, 2, n_layers=2, device=cuda, generator=gen)
+        moved.coord, moved.vel = g.coord @ R, g.vel @ R
+        x0, x1 = gvp(g)[0], gvp(moved)[0]
+        assert float((x1 - x0 @ R).abs().max()) <= 1e-4 * float(x0.abs().max())
+        for name in ("DimeNet", "DimeNet++"):
+            net = get_model(name, 2, 2, num_blocks=2, device=cuda, generator=gen)
+            _scale_dimenet_output(net, g)
+            moved.coord = g.coord @ R + t
+            a, b = net(g), net(moved)
+            assert float((a - b).abs().max()) <= 1e-4, name
 
 
 def _cli_run(cuda, tmp_path, *more):

@@ -191,13 +191,22 @@ def test_get_model_builds_the_ported_models_and_raises_for_the_rest():
     assert [p.shape for p in built["Linear"].parameters()] == [(1,)]
     assert built["MLP"].embedding.in_features == 2 and len(built["MLP"].layers) == 1
     assert not MMD_MODELS & set(built)
-    for name in ("TFN", "GVP", "DimeNet", "DimeNet++"):
-        with pytest.raises(ValueError, match="ROADMAP.md item 12"):
-            get_model(name, 2, 2, device="cpu")
+    # GVP at the JAX CLI's fixed widths, DimeNet with num_blocks = --num_layer
+    built = {name: get_model(name, 2, 2, hidden=32, n_layers=1, num_blocks=1, device="cpu")
+             for name in ("GVP", "DimeNet", "DimeNet++")}
+    assert len(built["GVP"].layers) == 1 and built["GVP"].W_v[1].ws.out_features == 100
+    assert len(built["DimeNet"].interaction_blocks) == 1
+    assert len(built["DimeNet++"].output_blocks) == 2
+    assert built["DimeNet"].emb.lin.out_features == 32
+    assert hasattr(built["DimeNet++"].interaction_blocks[0], "lin_down")
+    assert not MMD_MODELS & set(built)
+    with pytest.raises(ValueError, match="ROADMAP.md item 12"):
+        get_model("TFN", 2, 2, device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         get_model("NoSuchModel", 2, 2, device="cpu")
     # no bf16 path: raise rather than run f32 where bf16 was asked for
-    for name in ("FastRF", "FastSchNet", "FastTFN", "VNEGNN", "EGNN", "SchNet", "EGHN"):
+    for name in ("FastRF", "FastSchNet", "FastTFN", "VNEGNN", "EGNN", "SchNet", "EGHN", "GVP",
+                 "DimeNet", "DimeNet++"):
         with pytest.raises(ValueError, match="float32 only"):
             get_model(name, 2, 2, compute_dtype=torch.bfloat16, device="cpu")
         get_model(name, 2, 2, compute_dtype=torch.float32, device="cpu")
