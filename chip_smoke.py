@@ -20,8 +20,10 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    FastRF, FastSchNet, FastTFN, VNEGNN, the baselines EGNN, GNN, RF,
    Linear, SchNet and EGHN (these on a small protein chain with its bonds),
    GVP, DimeNet and DimeNet++ (these two with the graph's triplet table and
-   their last linears scaled so that the largest output is 1) (1e-4), bf16
-   for the fused layer (2e-2);
+   their last linears scaled so that the largest output is 1), the TFN
+   family (the CLIs' TFN, OurDynamics at nf = 32; its se3_transformer kind;
+   the pooled TFN and SE3Transformer) (1e-4), bf16 for the fused layer
+   (2e-2);
 4. the main path: FastEGNN (H=64, C=3, L=4, gravity, bf16) trained with
    Adam(5e-4, 1e-12) and MMD (sigma 1, weight 0.01, sample 3, per graph) on
    the 8000-node graph, 3 warm-up + 20 timed steps, with the kernels' launch
@@ -64,19 +66,25 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    its gathers' backwards over ``[E, 148]``), DimeNet and DimeNet++ (the
    triplets' sum at ji over ``[T, 64]`` and the perm-form sums at kj in
    the backward; T and the seconds to build the triplet table printed),
-   on the MSE alone, each new form held against its plain version;
+   on the MSE alone, each new form held against its plain version; then
+   ``--model TFN`` (OurDynamics, nf = 32, L = 4, num_degrees 2; the MSE
+   alone), its convolutions' mean at src and its gathers' backwards over
+   ``[E, 128]`` held; then the se3_transformer kind of OurDynamics at the
+   JAX defaults through the train step on that batch (timed steps, a
+   profiler window, its softmax denominators' and weighted values' sums at
+   src held);
 9. the protein path: the same for the protein CLI (``run_protein.sh``:
    batch 50, sigma 1.0, weight 0.5, delta_frame 15, ``--cutoff_rate 0.5``)
    on a synthetic 856-atom chain of 270 frames (151 / 50 / 52 samples),
    for the five models (VNEGNN's virtual positions from the batch's
-   Fibonacci spheres) and EGNN; then EGHN (n_cluster 15, 3 layers per
+   Fibonacci spheres), EGNN and TFN; then EGHN (n_cluster 15, 3 layers per
    block, 4 pooling layers, a 2-layer decoder) on the CLI's datasets with
    the chain's bonds, the segment-sum kernel held in its bond forms
    (through ``local_perm`` / ``local_src_perm``) and its pooled
    adjacency's;
 10. the equivariance CLI on the card at 10 and 100 nodes for the five
-   models and EGNN, RF, Linear and SchNet: every trial within 1e-4, with
-   each model's launches.
+   models and EGNN, RF, Linear, SchNet and TFN: every trial within 1e-4,
+   with each model's launches.
 
 Each of phases 8-10 prints its seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path, and
@@ -112,8 +120,9 @@ CLI_TRAJ, CLI_FRAMES, CLI_EPOCHS, ROLL_STEPS = 3, 300, 3, 5
 # path's graph has too ([cli] prints the count)
 CLI_RADIUS = 0.075
 # the N-body path (run_nbody.sh): 100 charged particles, one batch of 100
-# graphs per split; the loader reads frames 30 and 40 (steps 3000 and
-# 4000), so the trajectories stop at 4100 steps of the reference's 5000
+# graphs per split (the loop drops a short last batch, so no split can be
+# smaller); the loader reads frames 30 and 40 (steps 3000 and 4000), so the
+# trajectories stop at 4100 steps of the reference's 5000
 NB_PARTICLES, NB_TRAJ, NB_LENGTH = 100, 100, 4100
 # the protein path (run_protein.sh) on a synthetic chain of AdK's backbone
 # size (214 residues x 4 atoms); 270 of its 4,187 frames: 151 / 50 / 52
@@ -136,6 +145,14 @@ TRIPLET_MODELS = ("DimeNet", "DimeNet++")
 # all three at the N-body CLI's batch of 100: DimeNet's reckoned peak there
 # is under 60 GiB (PERF.md §5), so no batch is cut
 ZOO = ("GVP",) + TRIPLET_MODELS
+# the TFN family: the CLIs' --model TFN (OurDynamics at nf = 32, L = 4,
+# num_degrees = 2) on the N-body, protein and equivariance CLIs; the
+# SE(3)-Transformer kind of OurDynamics (no CLI flag selects it) through the
+# train step on the N-body batch; the pooled TFN and SE3Transformer in
+# [small] only (no CLI trains them)
+TFN_NF = 32
+SE3 = "se3_transformer"
+SMALL_TFN_FAMILY = (SE3, "pooled TFN", "pooled SE3Transformer")
 NBODY_BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet")
 EQUIVARIANT_BASELINES = ("EGNN", "RF", "Linear", "SchNet")
 # depths at the CLIs' configuration where it is not LAYERS: SchNet's 16
@@ -157,13 +174,18 @@ SMALL_DEPTH = {"SchNet": 2, "EGHN": (2, 2)}
 # of its translations forward and the gathers of x backward; SchNet per
 # interaction the dst mean of the coordinate update and the CFConv's sum at
 # src forward, the gathers of [h | x] and of lin1(h) at dst backward;
-# Linear none.  EGHN: expected_launches.
+# Linear none.  EGHN: expected_launches.  TFN (OurDynamics, and the pooled
+# TFN) per convolution its mean at src forward and the gathers of its input
+# at dst and src backward, less the first's (its input, the charges and
+# velocities or the node features, needs no gradient); the
+# SE(3)-Transformer: expected_launches.
 PER_LAYER = {"FastEGNN": ((1, 0, 0), (0, 1, 0)), "FastRF": ((1, 0, 0), (0, 1, 0)),
              "FastSchNet": ((0, 0, 2), (0, 0, 2)), "FastTFN": ((0, 0, 2), (0, 0, 2)),
              "VNEGNN": ((1, 0, 0), (0, 1, 0)), "EGNN": ((0, 0, 1), (0, 0, 2)),
              "GNN": ((0, 0, 1), (0, 0, 2)), "RF": ((0, 0, 1), (0, 0, 2)),
              "Linear": ((0, 0, 0), (0, 0, 0)), "SchNet": ((0, 0, 2), (0, 0, 3)),
-             "GVP": ((0, 0, 1), (0, 0, 2))}
+             "GVP": ((0, 0, 1), (0, 0, 2)), "TFN": ((0, 0, 1), (0, 0, 2)),
+             "pooled TFN": ((0, 0, 1), (0, 0, 2))}
 # DimeNet per block: the triplets' sum at ji forward; backward the
 # perm-form sums at kj of the messages' gradient, one per bilinear channel
 # (DimeNet) or one (++); besides, the num_blocks + 1 output blocks' sums
@@ -176,7 +198,8 @@ KJ_SUMS = {"DimeNet": 8, "DimeNet++": 1}
 # lin1(h)'s gather); RF's first layer gathers the input coordinates, which
 # need no gradient
 SKIPS = {"FastTFN": ((0, 0, 1), (0, 0, 2)), "SchNet": ((0, 0, 1), (0, 0, 1)),
-         "RF": ((0, 0, 0), (0, 0, 2))}
+         "RF": ((0, 0, 0), (0, 0, 2)), "TFN": ((0, 0, 0), (0, 0, 2)),
+         "pooled TFN": ((0, 0, 0), (0, 0, 2))}
 # the segment-sum forms of FastSchNet's path, held against the plain
 # version on its N-body and protein batches: the dst means of the
 # coordinate update (diff * gate) and of m_e, and the backwards of the
@@ -209,10 +232,17 @@ EGHN_FORMS = (("bond dst f32 [El, 9]", 9, False, "bond dst"),
 # on the same batch)
 GVP_FORMS = (("dst f32 [E, 148]", 148, False, "dst"), ("src f32 [E, 148]", 148, False, "src"))
 DIMENET_FORMS = (("ji f32 [T, 64]", 64, False, "ji"), ("kj f32 [T, 64]", 64, False, "kj"))
+# TFN at nf = 32: the convolutions' mean at src of [32 | 32 x 3] and the
+# backwards of their input's gathers at dst and src (the last convolution's
+# mean is FastTFN's src [E, 3]); the SE(3)-Transformer's softmax
+# denominators at src, its weighted values at src and the backward of the
+# queries' gather at src (128 wide), and the denominators' gather (1 wide)
+TFN_DYN_FORMS = (("src f32 [E, 128]", 128, False, "src"), ("dst f32 [E, 128]", 128, False, "dst"))
+SE3_FORMS = (("src f32 [E, 1]", 1, False, "src"), ("src f32 [E, 128]", 128, False, "src"))
 # each model's forms, held on its N-body or protein batch
 PATH_FORMS = {"FastSchNet": SCHNET_FORMS, "FastTFN": TFN_FORMS, "GNN": GNN_FORMS,
               "SchNet": SCHNET_BASELINE_FORMS, "EGHN": EGHN_FORMS, "GVP": GVP_FORMS,
-              "DimeNet": DIMENET_FORMS}
+              "DimeNet": DIMENET_FORMS, "TFN": TFN_DYN_FORMS, SE3: SE3_FORMS}
 # kernel vs plain, as max |kernel - plain| / max |plain| per output
 TOL = {("fwd", False): 1e-5, ("bwd", False): 5e-5,   # f32; bwd sums with atomics
        ("fwd", True): 2e-2, ("bwd", True): 2e-2}     # bf16: one bf16 ulp can flip
@@ -424,8 +454,15 @@ def expected_launches(model: str, layers, train_steps: int, forwards: int) -> di
     src; the pooled adjacencies' sums forward (bonds and real edges) and
     the real edges' gather backward (the bonds' feeds only the cut loss,
     which is not trained on).  DimeNet's and DimeNet++'s ``layers`` are
-    their blocks (``KJ_SUMS``)."""
-    if model == "EGHN":
+    their blocks (``KJ_SUMS``).  The SE(3)-Transformer (``SE3``, and the
+    pooled SE3Transformer) per attention block the softmax denominators' and
+    the weighted values' sums at src forward, and the backwards of the
+    gathers of the queries and the denominators at src and of the block's
+    input at dst (none for the first block's input); then ``conv_out`` as
+    TFN's convolutions."""
+    if model in (SE3, "pooled SE3Transformer"):
+        fwd, bwd = (0, 0, 2 * layers + 1), (0, 0, 3 * layers + 1)
+    elif model == "EGHN":
         block, pooling = layers
         fwd, bwd = (0, 0, 2 * block + 2 * pooling + 2), (0, 0, 4 * block + 2 * pooling + 1)
     elif model in TRIPLET_MODELS:
@@ -486,12 +523,16 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
         g = small_batch(model, tmp)
     gen = torch.Generator().manual_seed(3)
     depth = SMALL_DEPTH.get(model, 2)
-    # get_model drops the keyword arguments a model does not take
-    kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2, gravity=(0.0, -1.0, 0.0),
-              attention=attention, compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-              num_interactions=2, layer_per_block=2, layer_pooling=2, num_blocks=2)
-    gpu = get_model(model, 2, 2, device="cuda", generator=gen, **kw)
-    cpu = get_model(model, 2, 2, device="cpu", **kw)
+    if model in SMALL_TFN_FAMILY:
+        gpu, cpu = (tfn_family_model(model, device, gen) for device in ("cuda", "cpu"))
+    else:
+        # get_model drops the keyword arguments a model does not take
+        kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2,
+                  gravity=(0.0, -1.0, 0.0), attention=attention,
+                  compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                  num_interactions=2, layer_per_block=2, layer_pooling=2, num_blocks=2)
+        gpu = get_model(model, 2, 2, device="cuda", generator=gen, **kw)
+        cpu = get_model(model, 2, 2, device="cpu", **kw)
     if model in TRIPLET_MODELS:
         with torch.no_grad():
             lins = [b.lin.weight for b in gpu.output_blocks]
@@ -507,7 +548,11 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     reset_launch_counts()
     for net, batch in ((gpu, g), (cpu, gc)):
         out = net(batch)
-        masked_mse(prediction(out), batch.coord_target, batch.node_mask).backward()
+        pred = prediction(out)
+        if pred.shape[0] == batch.num_nodes:
+            masked_mse(pred, batch.coord_target, batch.node_mask).backward()
+        else:   # a pooled model's [B, 1]
+            pred.square().sum().backward()
         outs.append(([t.detach().cpu() for t in flat_outputs(out)],
                      {k: p.grad.detach().cpu() for k, p in net.named_parameters()
                       if p.grad is not None}))
@@ -545,6 +590,32 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
           f"{worst}) {err_g:.3e} (tol {tol:g}); launches {launches}", flush=True)
     check(np.isfinite(errs + [err_g]).all(), "small: bad output")
     check(max(errs + [err_g]) <= tol, "small: card and CPU disagree")
+
+
+def tfn_family_model(kind: str, device: str, generator):
+    """[small]'s TFN-family models beside the registry's TFN, at depth 2:
+    the SE(3)-Transformer kind of OurDynamics (nf = 32), and the pooled TFN
+    and SE3Transformer (8 channels, 2 degrees, div 1) called on the batch's
+    node features."""
+    import torch
+
+    from fastegnn_tpu_torch.models.tfn import SE3Transformer, TFN, OurDynamics
+
+    class OnNodeFeatures(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, g):
+            return self.net(g.node_feat, g)
+
+    if kind == SE3:
+        return OurDynamics(2, 2, nf=TFN_NF, n_layers=2, model=SE3, device=device,
+                           generator=generator)
+    if kind == "pooled TFN":
+        return OnNodeFeatures(TFN(2, 2, 8, num_degrees=2, device=device, generator=generator))
+    return OnNodeFeatures(SE3Transformer(2, 2, 8, num_degrees=2, div=1, device=device,
+                                         generator=generator))
 
 
 def flat_outputs(out) -> list:
@@ -913,6 +984,43 @@ def training_cli_phase(tag: str, args, sets):
     return launches, kern, numbers
 
 
+def se3_transformer_phase(tag: str, sets, batch_size: int):
+    """The SE(3)-Transformer kind of OurDynamics at the JAX defaults (nf =
+    32, L = LAYERS, div 1, one head; no CLI flag selects it) through the
+    train step on one N-body CLI batch, on the MSE alone as the CLIs train
+    TFN: WARMUP + TIMED train steps with exact launch counts, a profiler
+    window, and its segment-sum forms against their plain versions."""
+    import torch
+
+    from fastegnn_tpu_torch.models.tfn import OurDynamics
+    from fastegnn_tpu_torch.train.optim import torch_adam
+    from fastegnn_tpu_torch.train.step import make_train_step
+
+    g = sets[0].collate(list(range(batch_size)))
+    model = OurDynamics(2, 2, nf=TFN_NF, n_layers=LAYERS, model=SE3, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    opt = torch_adam(model.parameters(), 5e-4, 1e-12)
+    step = make_train_step(model, opt, sigma=1.5, weight=0.01, sample=3,
+                           per_graph_sampling=False, use_mmd=False)
+    launches, step_ms, rate, peak_gib = timed_steps(
+        step, g, g.n_real_edges, tag, f"{SE3} nf={TFN_NF} f32, MSE alone",
+        expected_launches(SE3, LAYERS, 1, 0))
+    with torch.no_grad():
+        x = model(g)
+    check(tuple(x.shape) == (g.num_nodes, 3) and bool(torch.isfinite(x).all()),
+          f"{tag}: bad prediction")
+    prof = profile_window(step, g, tag)
+    del step, model, opt, x
+    torch.cuda.empty_cache()
+    kern = segsum_phase(g, torch.Generator().manual_seed(8), SE3_FORMS, tag=tag)
+    numbers = dict(step_ms=step_ms, M_edge_messages_per_s=rate,
+                   device_ms_per_step=prof[0] if prof else None,
+                   busy_share=prof[1] if prof else None, peak_device_gib=peak_gib,
+                   batch=batch_size, nodes=g.num_nodes, real_edges=g.n_real_edges,
+                   padded_edges=g.num_edges)
+    return launches, kern, numbers
+
+
 def each_model(tag: str, parse, sets, models) -> dict:
     """``training_cli_phase`` for each of ``models`` on the same datasets;
     ``parse(more)`` gives the CLI's arguments with ``more`` added."""
@@ -969,8 +1077,9 @@ def nbody_phase(tmp: str):
           f"nodes {sets[0].spec.max_nodes}, edges per graph {sets[0].spec.max_edges}, real "
           f"edges per node {edges_per_node(sets)}", flush=True)
     runs = each_model("nbody", parse, sets,
-                      ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES + ZOO)
+                      ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES + ZOO + ("TFN",))
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
+    runs[SE3] = se3_transformer_phase(f"nbody {SE3}", sets, args.batch_size)
     return runs
 
 
@@ -1008,7 +1117,7 @@ def protein_phase(tmp: str):
     check(fib is not None and tuple(fib.shape) == (2, 3, CHANNELS)
           and fib.device.type == "cuda",
           "protein: no virtual_fibonacci on the batch")
-    runs = each_model("protein", parse, sets, ("FastEGNN",) + NEW_MODELS + ("EGNN",))
+    runs = each_model("protein", parse, sets, ("FastEGNN",) + NEW_MODELS + ("EGNN", "TFN"))
     t0 = time.perf_counter()
     bond_args = parse(["--model", "EGHN"])
     bond_sets = protein.datasets(bond_args, torch.device("cuda"))
@@ -1029,7 +1138,7 @@ def equivariance_phase():
     from fastegnn_tpu_torch.cli import equivariance
 
     errors = {}
-    for model in ("FastEGNN",) + NEW_MODELS + EQUIVARIANT_BASELINES:
+    for model in ("FastEGNN",) + NEW_MODELS + EQUIVARIANT_BASELINES + ("TFN",):
         for argv in ([], ["--nodes", "100"]):
             argv = [*argv, "--model", model]
             args = equivariance.build_parser().parse_args(argv)
@@ -1091,7 +1200,7 @@ def main() -> int:
     small_model_phase(attention=False)
     small_model_phase(attention=True)
     small_model_phase(attention=False, bf16=True)
-    for model in NEW_MODELS + BASELINES + ZOO:
+    for model in NEW_MODELS + BASELINES + ZOO + ("TFN",) + SMALL_TFN_FAMILY:
         small_model_phase(attention=False, model=model)
     launches, step_ms, rate = train_path_phase(
         g, n_real, "main", attention=False, bf16=True,

@@ -3,13 +3,14 @@
 The flags and their defaults are the JAX package's.  ``--model`` takes the
 models of ``models/__init__.py::MODEL_REGISTRY`` that train on a graph
 batch; those of ``MMD_MODELS`` train with the MMD loss, the others on the
-MSE alone, as in the JAX CLI.  EGHN needs a dataset with bond edges (the
-protein CLI's); its cut loss is not added to the loss.  DimeNet and
-DimeNet++ train on the splits wrapped in ``TripletDataset``, whose batches
-carry their triplet tables, as the JAX CLI wraps them.  ``--model MLP``
-raises, as the JAX CLI fails on it: ``FullMLP`` takes an array, not a
-graph batch.  What the port does not have raises instead of falling back:
-the rest of the JAX registry, a ``--compute_dtype bfloat16`` for a model
+MSE alone, as in the JAX CLI.  ``--model TFN`` is ``OurDynamics`` at the
+JAX CLI's widths (``nf=32``, ``num_degrees=2``; ``--num_layer`` layers).
+EGHN needs a dataset with bond edges (the protein CLI's); its cut loss is
+not added to the loss.  DimeNet and DimeNet++ train on the splits wrapped
+in ``TripletDataset``, whose batches carry their triplet tables, as the JAX
+CLI wraps them.  ``--model MLP`` raises, as the JAX CLI fails on it:
+``FullMLP`` takes an array, not a graph batch.  What the port does not have
+raises instead of falling back: a ``--compute_dtype bfloat16`` for a model
 without a bf16 path (the JAX CLI drops it quietly), and a ``--mesh`` over
 more than one device.
 ``--platform`` names the port's device: absent means the CUDA card,

@@ -14,8 +14,9 @@ returns 0 when every trial passes, else 1 (GNN, which is not equivariant,
 fails, and so does GVP, which reads absolute positions: rotation- but not
 translation-equivariant).  DimeNet and DimeNet++ raise: they read a
 triplet table, which this graph does not carry, as the JAX CLI cannot
-feed them either.  The prediction is the model's output or its tuple's
-first entry, as in the JAX CLI.  It runs on the card (the f32 edge
+feed them either.  ``--model TFN`` is ``OurDynamics`` at ``nf=32``,
+``--num_layer`` layers.  The prediction is the model's output or its
+tuple's first entry, as in the JAX CLI.  It runs on the card (the f32 edge
 kernels for FastEGNN, FastRF and VNEGNN, the segment-sum kernel for the
 others) unless ``--platform cpu`` is given; TF32 stays off.
 

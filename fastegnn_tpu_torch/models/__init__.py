@@ -6,12 +6,11 @@ virtual-node loss (reference ``utils/train.py:111-112``) and
 ``MODEL_KWARGS`` the keyword arguments each constructor takes beside
 ``node_feat_dim``, ``edge_attr_dim``, ``device`` and ``generator`` (the
 JAX package's sets).  ``TRIPLET_MODELS`` read the batch's triplet table
-(their datasets are wrapped in ``TripletDataset``).  ``NOT_YET_PORTED``
-are the JAX registry's names the port does not have yet (ROADMAP.md item
-12); they raise.
-:func:`get_model` drops the others, as the JAX package's does, except a
-``compute_dtype`` other than f32 for a model without a bf16 path, which
-raises: the card does not run a precision the caller did not ask for.
+(their datasets are wrapped in ``TripletDataset``).  Every name of the JAX
+registry has its port.  :func:`get_model` drops the keyword arguments a
+model does not take, as the JAX package's does, except a ``compute_dtype``
+other than f32 for a model without a bf16 path, which raises: the card
+does not run a precision the caller did not ask for.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
 from fastegnn_tpu_torch.models.fast_rf import FastRF
 from fastegnn_tpu_torch.models.gvp import GVPNet
 from fastegnn_tpu_torch.models.schnet import FastSchNet, SchNet
-from fastegnn_tpu_torch.models.tfn import FastTFN
+from fastegnn_tpu_torch.models.tfn import FastTFN, OurDynamics
 from fastegnn_tpu_torch.models.vnegnn import VNEGNN
 
 MODEL_REGISTRY = {
@@ -33,6 +32,9 @@ MODEL_REGISTRY = {
     "FastRF": FastRF,
     "FastSchNet": FastSchNet,
     "FastTFN": FastTFN,
+    # the reference CLI's "TFN" builds the OurDynamics(model="tfn") wrapper
+    # (main_nbody.py:117-120)
+    "TFN": OurDynamics,
     "VNEGNN": VNEGNN,
     # reads the bond edges from the batch (the protein dataset's
     # with_local_edges); returns (x, h, cut_loss)
@@ -53,9 +55,6 @@ MODEL_REGISTRY = {
 }
 TRIPLET_MODELS = ("DimeNet", "DimeNet++")
 
-# the JAX registry's other names: the rest of ROADMAP.md item 12
-NOT_YET_PORTED = ("TFN",)
-
 MMD_MODELS = {"FastEGNN", "FastRF", "FastTFN", "FastSchNet"}
 
 _GEOMETRIC_KW = {"hidden", "n_layers", "attention", "normalize", "tanh"}
@@ -65,6 +64,8 @@ MODEL_KWARGS = {
     # the JAX model takes `normalize` and does not use it
     "FastSchNet": {"hidden", "n_layers", "attention", "tanh", "virtual_channels", "gravity"},
     "FastTFN": _GEOMETRIC_KW | {"virtual_channels", "gravity"},
+    # the CLIs pass n_layers only: nf=32, num_degrees=2, div=1
+    "TFN": {"nf", "n_layers", "num_degrees", "div"},
     # no gravity term
     "VNEGNN": _GEOMETRIC_KW | {"virtual_channels"},
     "EGHN": {"hidden", "n_cluster", "layer_per_block", "layer_pooling", "layer_decoder"},
@@ -86,9 +87,6 @@ MODEL_KWARGS = {
 def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
               generator=None, **kwargs) -> torch.nn.Module:
     """The model ``name`` built with the keyword arguments it takes."""
-    if name in NOT_YET_PORTED:
-        raise ValueError(f"model {name!r} is not ported yet: what is left of ROADMAP.md "
-                         "item 12 is the TFN family (--model TFN)")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     allowed = MODEL_KWARGS[name]
@@ -101,6 +99,6 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
 
 
 __all__ = ["DimeNet", "DimeNetPlusPlus", "EGHN", "EGNN", "GNN", "GVPNet", "FastEGNN", "FastRF",
-           "FastSchNet", "FastTFN", "FullMLP", "LinearDynamics", "RFVel", "SchNet",
-           "TripletDataset", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS", "MODEL_KWARGS",
-           "NOT_YET_PORTED", "TRIPLET_MODELS", "get_model"]
+           "FastSchNet", "FastTFN", "FullMLP", "LinearDynamics", "OurDynamics", "RFVel",
+           "SchNet", "TripletDataset", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS",
+           "MODEL_KWARGS", "TRIPLET_MODELS", "get_model"]

@@ -12,12 +12,12 @@ explicit generator:
   gain 1e-3 (reference ``models/FastEGNN.py:55-57``);
 - SchNet's interaction linears (:func:`xavier_linear`) xavier-uniform with
   zero biases (reference ``models/SchNet.py:282-289, 316-319``);
-- the TFN radial profiles' linears (:func:`he_linear`) He-uniform weights,
-  bound sqrt(6 / fan_in), with torch's default bias (the JAX package's
-  ``RadialFunc``); a linear with an ``init_weight(weight, generator)``
-  draws its weight with it (DimeNet's glorot-orthogonal, uniform and zero
-  weights); a module's own parameters are drawn by its
-  ``draw_parameters_(generator)``, where it has one.
+- the TFN radial profiles' and norm layers' linears (:func:`he_linear`)
+  He-uniform weights, bound sqrt(6 / fan_in), with torch's default bias
+  (the JAX package's ``RadialFunc`` and ``GNormSE3``); a linear with an
+  ``init_weight(weight, generator)`` draws its weight with it (DimeNet's
+  glorot-orthogonal, uniform and zero weights); a module's own parameters
+  are drawn by its ``draw_parameters_(generator)``, where it has one.
 """
 
 from __future__ import annotations
@@ -54,9 +54,9 @@ def xavier_linear(in_dim: int, out: int, bias: bool = True) -> nn.Linear:
     return m
 
 
-def he_linear(in_dim: int, out: int) -> nn.Linear:
+def he_linear(in_dim: int, out: int, bias: bool = True) -> nn.Linear:
     """``Linear`` whose weight is drawn He-uniform."""
-    m = nn.Linear(in_dim, out)
+    m = nn.Linear(in_dim, out, bias=bias)
     m.he_uniform = True
     return m
 

@@ -65,7 +65,7 @@ class TFNGCLVel(nn.Module):
         if attention:
             self.att_mlp = nn.Sequential(nn.Linear(H, 1), nn.Sigmoid())
             self.att_mlp_virtual = nn.Sequential(nn.Linear(H, 1), nn.Sigmoid())
-        self.tfn_layer = OursTFN()
+        self.tfn_layer = OursTFN(num_layers=1, num_channels=1)
 
     def forward(self, h, x, vx, vh, graph: GraphBatch, tfn_h, tfn_inputs: TFNInputs,
                 gravity: Optional[torch.Tensor] = None, features: bool = True):

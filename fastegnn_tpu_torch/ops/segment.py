@@ -4,6 +4,9 @@ Sums go through ``index_add_``.  As in XLA's segment ops, ids outside
 ``[0, num_segments)`` are dropped: they are routed to one extra bucket that
 is cut off, so no host synchronisation is needed.  Means divide by masked
 counts clamped to >= 1, so empty segments give 0.
+
+:func:`segment_softmax` is the exception: it runs over the real edges of a
+batch, whose sums go through the segment-sum kernel (``ops/spmm.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from fastegnn_tpu_torch.ops.spmm import gather_through, segment_sum_through
 
 
 def _mask_rows(data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -56,6 +61,37 @@ def segment_mean(
     total = segment_sum(data, segment_ids, num_segments, mask)
     count = segment_count(segment_ids, num_segments, mask).clamp_min(1.0)
     return total / count.reshape(count.shape + (1,) * (total.dim() - 1)).to(total.dtype)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    perm: torch.Tensor,
+    rowptr: torch.Tensor,
+    num_segments: int,
+) -> torch.Tensor:
+    """Numerically stable softmax of f32 ``logits`` [E, ...] over the rows of
+    each segment (DGL's ``edge_softmax``; the JAX function over rows that
+    are all real, so no mask).  ``perm`` int32 is the stable argsort of
+    ``segment_ids`` [E] and ``rowptr`` [num_segments + 1] its row pointer,
+    as ``ops/spmm.py::segment_sum_through`` takes them (``graph.src_perm``
+    and ``graph.src_rowptr`` for the real edges at src).
+
+    Each row is shifted by its segment's max (``scatter_reduce``, outside
+    autograd: the softmax does not depend on the shift; a segment without
+    rows keeps max 0, the JAX ``isfinite`` rule), exponentiated, and divided
+    by its segment's sum, clamped at ``finfo.tiny``.  The sum and the
+    backward of its gather back to the rows run on the segment-sum kernel."""
+    shape = logits.shape
+    x = logits.reshape(shape[0], -1)
+    ids = segment_ids.long()
+    with torch.no_grad():
+        top = x.new_zeros((num_segments, x.shape[1])).scatter_reduce_(
+            0, ids[:, None].expand_as(x), x, "amax", include_self=False)
+    expd = torch.exp(x - top.index_select(0, ids))
+    denom = segment_sum_through(expd, segment_ids, perm, rowptr, num_segments)
+    denom = denom.clamp_min(torch.finfo(x.dtype).tiny)
+    return (expd / gather_through(denom, segment_ids, perm, rowptr)).reshape(shape)
 
 
 def graph_mean_pool(

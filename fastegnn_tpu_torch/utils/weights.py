@@ -1,6 +1,6 @@
 """Weights from the JAX package's params into the port.
 
-Each function but two is the inverse of an importer of
+Each function but five (named below) is the inverse of an importer of
 ``fastegnn_tpu/utils/torch_import.py``: :func:`state_dict_from_jax_params`
 of ``params_from_reference_state_dict`` (FastEGNN),
 :func:`state_dict_from_fastrf_params` of ``params_from_fastrf_state_dict``,
@@ -11,9 +11,12 @@ for the baselines ``state_dict_from_{egnn,gnn,rfvel,linear_dynamics,
 egmn,eghn,schnet}_params`` of ``params_from_{...}_state_dict``, and
 :func:`state_dict_from_gvpnet_params` / :func:`state_dict_from_dimenet_params`
 of ``params_from_gvpnet_state_dict`` / ``params_from_dimenet_state_dict``.
-The JAX package has no importer for FastTFN or FullMLP;
-:func:`state_dict_from_fasttfn_params` and
-:func:`state_dict_from_fullmlp_params` map their trees as the others do.
+The JAX package has no importer for FastTFN, FullMLP or the TFN family;
+:func:`state_dict_from_fasttfn_params`, :func:`state_dict_from_fullmlp_params`,
+:func:`state_dict_from_ourdynamics_params` (``--model TFN``),
+:func:`state_dict_from_tfn_params` and
+:func:`state_dict_from_se3transformer_params` map their trees as the others
+do.
 Each takes the JAX param tree as a nested dict of numpy arrays and returns
 the port's ``state_dict`` in the reference PyTorch layout:
 
@@ -191,22 +194,64 @@ def state_dict_from_fasttfn_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _flax_modules(sd: dict, prefix: str, tree: Mapping) -> None:
+    """A flax module tree into ``sd`` under ``prefix``, where the port's
+    modules carry the JAX names: a dict with a ``kernel`` is a ``Linear``,
+    one with a ``scale`` a ``LayerNorm``, an array a parameter as it is, and
+    any other dict a submodule."""
+    for name, sub in tree.items():
+        key = f"{prefix}{name}"
+        if not isinstance(sub, Mapping):
+            sd[key] = _t(sub)
+        elif "kernel" in sub:
+            _linear(sd, key, sub)
+        elif "scale" in sub:
+            sd[f"{key}.weight"] = _t(sub["scale"])
+            sd[f"{key}.bias"] = _t(sub["bias"])
+        else:
+            _flax_modules(sd, f"{key}.", sub)
+
+
 def state_dict_from_gconv_params(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     """The port ``GConvSE3`` ``state_dict`` (keys after ``prefix``) for a
     JAX ``GConvSE3`` param tree: per pair ``core.pair_{di}_{do}.rp`` its
     linears and LayerNorms, and the self-interaction weights
     ``core.self_{d}``."""
     sd: Dict[str, torch.Tensor] = {}
-    for name, sub in params["core"].items():
-        c = f"{prefix}core.{name}"
-        if name.startswith("self_"):
-            sd[c] = _t(sub)
-            continue
-        for lin in ("lin0", "lin1", "lin2"):
-            _linear(sd, f"{c}.rp.{lin}", sub["rp"][lin])
-        for bn in ("bn0", "bn1"):
-            sd[f"{c}.rp.{bn}.weight"] = _t(sub["rp"][bn]["scale"])
-            sd[f"{c}.rp.{bn}.bias"] = _t(sub["rp"][bn]["bias"])
+    _flax_modules(sd, prefix, params)
+    return sd
+
+
+def state_dict_from_ourdynamics_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``OurDynamics`` (``--model TFN``) ``state_dict`` for a JAX
+    ``OurDynamics`` param tree, of either kind: ``se3.conv_{i}`` /
+    ``se3.norm_{i}`` / ``se3.conv_out`` (``model="tfn"``) or ``se3.res_{i}``
+    (``v``, ``k``: partial convolutions; ``q.w_{d}``) / ``se3.norm_{i}`` /
+    ``se3.conv_out`` / ``se3.scalar_trick`` (``"se3_transformer"``).  The
+    convolutions' keys are :func:`state_dict_from_gconv_params`'s, the norm
+    layers' ``bn_{d}`` / ``bn_{d}_{i}`` (``LayerNorm``) and ``lin_{d}_{i}``:
+    the JAX tree's names, as for FastTFN's TFN."""
+    sd: Dict[str, torch.Tensor] = {}
+    _flax_modules(sd, "se3.", params["se3"])
+    return sd
+
+
+def state_dict_from_tfn_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``TFN`` (pooled) ``state_dict`` for a JAX ``TFN`` param tree:
+    ``conv_{i}``, ``norm_{i}``, ``conv_out`` as in
+    :func:`state_dict_from_ourdynamics_params`, then ``fc0`` and ``fc1``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _flax_modules(sd, "", params)
+    return sd
+
+
+def state_dict_from_se3transformer_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port ``SE3Transformer`` (pooled) ``state_dict`` for a JAX
+    ``SE3Transformer`` param tree: ``res_{i}``, ``norm_{i}``, ``conv_out``
+    as in :func:`state_dict_from_ourdynamics_params` (no ``scalar_trick``),
+    then ``fc0`` and ``fc1``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _flax_modules(sd, "", params)
     return sd
 
 

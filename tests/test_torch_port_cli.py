@@ -82,7 +82,8 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cuda"])
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "TFN"], "item 12"),
+@pytest.mark.parametrize("flags,match", [(["--model", "TFN", "--compute_dtype", "bfloat16"],
+                                          "float32 only"),
                                          (["--mesh", "data=2"], "item 13"),
                                          (["--mesh", "data=1,graph=2"], "item 13"),
                                          (["--model", "MLP"], "not a graph batch"),
@@ -235,8 +236,9 @@ def test_nbody_and_protein_clis_need_a_card_unless_the_cpu_is_asked_for(
 
 
 def test_protein_cli_raises_on_what_the_port_does_not_have(protein_npz, monkeypatch):
-    with pytest.raises(ValueError, match="item 12"):
-        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "TFN"])
+    with pytest.raises(ValueError, match="float32 only"):
+        pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "TFN",
+                       "--compute_dtype", "bfloat16"])
     with pytest.raises(ValueError, match="not a graph batch"):
         pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "MLP"])
     monkeypatch.setitem(sys.modules, "MDAnalysis", None)
@@ -253,8 +255,8 @@ def test_equivariance_cli_passes_at_its_tolerance_and_fails_at_zero(capsys, monk
     assert out.count("PASS\n") == 2 and "PASSED" in out
     assert peq.main(small + ["--atol", "0"]) == 1
     assert "FAILED" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="item 12"):
-        peq.main(small + ["--model", "TFN"])
+    # the CLIs' TFN (nf = 32) is equivariant too
+    assert peq.main(small + ["--model", "TFN"]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         peq.main(["--nodes", "8"])

@@ -104,11 +104,12 @@ def test_segment_sum_matches_plain_version(cuda, form, bf16):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-@pytest.mark.parametrize("width", [128, 3])
+@pytest.mark.parametrize("width", [128, 3, 1])
 def test_src_segment_sum_op_matches_its_plain_version(cuda, width):
-    # the sums at src of SchNetCore's CFConv (width 128) and of FastTFN's
-    # TFN (width 3): the kernel over the src-sorted CSR forward, the gather
-    # at src backward
+    # the sums at src of SchNetCore's CFConv and the TFN convolutions' mean
+    # at nf = 32 (width 128), of FastTFN's TFN (width 3) and of the
+    # SE(3)-Transformer's softmax denominators (width 1): the kernel over
+    # the src-sorted CSR forward, the gather at src backward
     g = _graph(cuda)
     ne = g.n_real_edges
     data = torch.randn(ne, width, device=cuda, requires_grad=True)
@@ -125,6 +126,29 @@ def test_src_segment_sum_op_matches_its_plain_version(cuda, width):
     want.backward(dout.cpu())
     assert spmm.SEGSUM_LAUNCHES == before + 1
     assert torch.equal(data.grad.cpu(), ref.grad)
+
+
+def test_segment_softmax_on_the_card_matches_cpu(cuda):
+    # the attention's softmax at src over [E, 2] logits: the denominators'
+    # sum forward and their gather's backward on the kernel
+    from fastegnn_tpu_torch.ops.segment import segment_softmax
+
+    g = _graph(cuda)
+    ne = g.n_real_edges
+    logits = (torch.randn(ne, 2, device=cuda) * 3).requires_grad_()
+    args = (g.src[:ne], g.src_perm, g.src_rowptr, g.num_nodes)
+    before = spmm.SEGSUM_LAUNCHES
+    got = segment_softmax(logits, *args)
+    w = torch.randn(ne, 2, device=cuda)
+    (got * w).sum().backward()
+    torch.cuda.synchronize()
+    assert spmm.SEGSUM_LAUNCHES == before + 2
+    ref = logits.detach().cpu().requires_grad_()
+    want = segment_softmax(ref, *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    (want * w.cpu()).sum().backward()
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(logits.grad.cpu(), ref.grad, rtol=0,
+                               atol=1e-5 * float(ref.grad.abs().max()))
 
 
 def _ragged_csr(rng, n, long_row, long_deg, empty):
@@ -428,6 +452,10 @@ def _card_against_cpu(g, model, cpu, launches):
     # blocks' sums at src forward and the embedding's gathers backward
     ("DimeNet", (0, 0, 2 + 3 + 2 * 8 + 2)),
     ("DimeNet++", (0, 0, 2 + 3 + 2 * 1 + 2)),
+    # OurDynamics at nf = 32: per convolution the mean at src forward, the
+    # gathers of its input at dst and src backward (the first one's input,
+    # the charges and velocities, needs none)
+    ("TFN", (0, 0, 2 + 2)),
 ])
 def test_new_models_on_card_match_cpu(cuda, name, launches):
     from fastegnn_tpu_torch.models import TRIPLET_MODELS, get_model
@@ -443,6 +471,46 @@ def test_new_models_on_card_match_cpu(cuda, name, launches):
         _scale_dimenet_output(model, g)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     _card_against_cpu(g, model, cpu, launches)
+
+
+class _OnNodeFeatures(torch.nn.Module):
+    """A pooled TFN model called on a batch: ``model(g.node_feat, g)``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, g):
+        return self.model(g.node_feat, g)
+
+
+@pytest.mark.parametrize("name,launches", [
+    # per attention block the softmax denominators' and the weighted
+    # values' sums at src forward; the gathers of q and of the denominators
+    # at src and, from the second block on, of the block's input at dst
+    # backward; then conv_out as for TFN
+    ("se3_transformer", (0, 0, 5 + 2 + 3 + 2)),
+    # the pooled models: TFN as OurDynamics; SE3Transformer as the
+    # se3_transformer (div 1)
+    ("pooled TFN", (0, 0, 2 + 2)),
+    ("pooled SE3Transformer", (0, 0, 5 + 2 + 3 + 2)),
+])
+def test_tfn_family_on_card_matches_cpu(cuda, name, launches):
+    from fastegnn_tpu_torch.models.tfn import SE3Transformer, TFN, OurDynamics
+
+    g = _graph(cuda, n=60, seed=3)
+    models = []
+    for device in (cuda, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        if name == "se3_transformer":
+            m = OurDynamics(2, 2, nf=32, n_layers=2, model=name, device=device, generator=gen)
+        elif name == "pooled TFN":
+            m = _OnNodeFeatures(TFN(2, 2, 8, num_degrees=2, device=device, generator=gen))
+        else:
+            m = _OnNodeFeatures(SE3Transformer(2, 2, 8, num_degrees=2, div=1, device=device,
+                                               generator=gen))
+        models.append(m)
+    _card_against_cpu(g, *models, launches)
 
 
 @torch.no_grad()

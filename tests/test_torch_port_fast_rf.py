@@ -200,13 +200,15 @@ def test_get_model_builds_the_ported_models_and_raises_for_the_rest():
     assert built["DimeNet"].emb.lin.out_features == 32
     assert hasattr(built["DimeNet++"].interaction_blocks[0], "lin_down")
     assert not MMD_MODELS & set(built)
-    with pytest.raises(ValueError, match="ROADMAP.md item 12"):
-        get_model("TFN", 2, 2, device="cpu")
+    # the CLIs' TFN: OurDynamics at nf = 32, num_degrees = 2, L = n_layers
+    tfn = get_model("TFN", 2, 2, hidden=32, n_layers=1, device="cpu")
+    assert type(tfn).__name__ == "OurDynamics" and tfn.se3.num_layers == 1
+    assert tfn.se3.conv_out.core.pair_1_1.rp.lin2.out_features == 3 and "TFN" not in MMD_MODELS
     with pytest.raises(ValueError, match="Unknown model"):
         get_model("NoSuchModel", 2, 2, device="cpu")
     # no bf16 path: raise rather than run f32 where bf16 was asked for
     for name in ("FastRF", "FastSchNet", "FastTFN", "VNEGNN", "EGNN", "SchNet", "EGHN", "GVP",
-                 "DimeNet", "DimeNet++"):
+                 "DimeNet", "DimeNet++", "TFN"):
         with pytest.raises(ValueError, match="float32 only"):
             get_model(name, 2, 2, compute_dtype=torch.bfloat16, device="cpu")
         get_model(name, 2, 2, compute_dtype=torch.float32, device="cpu")
