@@ -46,7 +46,11 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    graph of the trained model, 4 forward launches per step; then the f32
    edge kernels against their plain versions on that graph;
 8. the N-body path: the port's generator writes ``100_0_0`` (100
-   trajectories per split, 4100 steps, a spawned worker per CPU), and the
+   trajectories per split, 4100 steps, a spawned worker per CPU); on the
+   first batch of its train split the data-parallel path ``[dp]``
+   (``dp_phase``: two gloo ranks on the card, each on its half, against
+   one process on the whole batch; a one-rank NCCL group's DP step against
+   the plain step with the MMD term on, both timed); then the
    N-body CLI's ``run_training`` trains on it at ``run_nbody.sh``'s
    configuration (f32, batch 100, ``--cutoff_rate 0.5``, sigma 1.5, weight
    0.01, seed 43, the shared MMD draw) for 2 epochs with exact launch
@@ -87,7 +91,8 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    with each model's launches.
 
 Each of phases 8-10 prints its seconds.  Output: one JSON line
-``{"kernels": [...]}`` (each kernel with its launches on every path, and
+``{"kernels": [...]}`` (each kernel with its launches on every path,
+``[dp]``'s as ``nbody_dp_launches`` (rank 0's), and
 its f32 checks on the CLI batch, the rollout graph and the N-body and
 protein batches), the nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
@@ -95,6 +100,7 @@ protein batches), the nvidia-smi line, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import datetime
 import glob
 import json
 import os
@@ -129,6 +135,10 @@ NB_PARTICLES, NB_TRAJ, NB_LENGTH = 100, 100, 4100
 # samples at delta_frame 15
 PROT_ATOMS, PROT_FRAMES, PROT_SIZES = 856, 270, [151, 50, 52]
 PATH_EPOCHS = 2
+# the data-parallel path ([dp]): ranks on the one card, steps held against
+# one process, the parameters' tolerance there (measured on the H100 at
+# 700 W: 1.5e-8 where |g| >= 1e-6, 6.0e-7 over all), the ranks' time limit
+DP_RANKS, DP_STEPS, DP_ATOL, DP_JOIN_S = 2, 2, 1e-6, 300
 # the port's kernels, which [profile] lists wherever they rank
 OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 KERNELS = ("edge_block_fwd", "edge_block_bwd", "segment_sum")
@@ -1040,6 +1050,232 @@ def edges_per_node(sets):
     return [f"{a.mean():.1f} / {a.min():.1f} / {a.max():.1f}" for a in per_node]
 
 
+def nbody_model(spec, device: str):
+    """FastEGNN as the N-body CLI builds it (H=64, C=3, L=4, f32, seed 43)."""
+    import torch
+
+    from fastegnn_tpu_torch.models import get_model
+
+    return get_model("FastEGNN", spec.node_feat_dim, spec.edge_attr_dim, hidden=HIDDEN,
+                     virtual_channels=CHANNELS, n_layers=LAYERS, num_blocks=LAYERS,
+                     compute_dtype=torch.float32, device=device,
+                     generator=torch.Generator().manual_seed(43))
+
+
+def flat_params(model):
+    return {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()}
+
+
+def dp_rank(rank: int, store: str, graphs, spec, state: dict, out: str) -> None:
+    """[dp] (a): one of DP_RANKS gloo ranks on cuda:0, spawned by
+    ``dp_phase``: ``DP_STEPS`` data-parallel train steps (N-body CLI
+    configuration, weight 0) on its half of the first N-body batch, drawn by
+    ``iter_dp_batches`` from the whole batch; then ``all_reduce`` calls of
+    the flat gradient's size, timed, and ``make_dp_agree``'s broadcast of
+    rank 0's eval losses (the loop's early-stop decision).  Writes its parameters, metrics,
+    launches and times to ``out`` followed by its rank."""
+    import torch
+    import torch.distributed as dist
+
+    from fastegnn_tpu_torch.data.batcher import GraphDataset
+    from fastegnn_tpu_torch.parallel import (
+        iter_dp_batches,
+        make_dp_agree,
+        make_dp_train_step,
+        make_mesh,
+    )
+    from fastegnn_tpu_torch.train.loop import step_key
+    from fastegnn_tpu_torch.train.optim import torch_adam
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo takes CUDA tensors; NCCL refuses two ranks on one card
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=DP_RANKS,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((DP_RANKS,), ("data",), "cuda")
+        ds = GraphDataset(graphs, spec, device="cuda")
+        g = next(iter(iter_dp_batches(ds, len(graphs), mesh)))
+        model = nbody_model(spec, "cuda")
+        model.load_state_dict(state)
+        step = make_dp_train_step(model, torch_adam(model.parameters(), 5e-4, 1e-12), mesh,
+                                  sigma=1.5, weight=0.0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        metrics, times = [], []
+        for i in range(DP_STEPS):
+            t0 = time.perf_counter()
+            metrics.append({k: float(v) for k, v in step(g, step_key(43, 0, 1, i)).items()})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        buf = torch.ones(sum(p.numel() for p in model.parameters()), device="cuda")
+        ar = []
+        for _ in range(WARMUP + TIMED):
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            ar.append(time.perf_counter() - t0)
+        check(bool((buf == DP_RANKS ** (WARMUP + TIMED)).all()), "dp: gloo's CUDA all_reduce")
+        agreed = make_dp_agree(mesh)(1.0 + rank, 0.5)
+        check(agreed == [1.0, 0.5], f"dp: rank {rank} agreed on {agreed}, not rank 0's losses")
+        torch.save(dict(params=flat_params(model), metrics=metrics, launches=launches,
+                        step_ms=[t * 1e3 for t in times], nodes=g.num_nodes,
+                        real_edges=g.n_real_edges, n_graphs=g.n_graphs,
+                        allreduce_ms=statistics.median(ar[WARMUP:]) * 1e3), f"{out}{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(tmp: str, dtr, batch_size: int) -> tuple:
+    """The data-parallel path on the one card, at the N-body CLI's
+    configuration on the first batch of its train split (100 graphs,
+    10,000 nodes, 495,000 real edges): (a) ``DP_RANKS`` gloo ranks on
+    cuda:0, each on its contiguous half, after ``DP_STEPS`` steps held
+    against as many one-process steps on the whole batch (the MSE to 1e-5,
+    each parameter to ``DP_ATOL`` where neither one-process step's gradient
+    is below 1e-6: there the atomics' last bits can flip Adam's first
+    update, ~lr * sign(g)), the ranks' parameters bitwise equal, 4 + 4 f32
+    edge-kernel launches per rank step; (b) a one-rank NCCL group: the
+    data-parallel step with the MMD term on against the plain step on the
+    same key (the first step's metrics bitwise, parameters as in (a)), and
+    both steps timed."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fastegnn_tpu_torch.parallel import initialize_distributed, make_dp_train_step, make_mesh
+    from fastegnn_tpu_torch.train.loop import step_key
+    from fastegnn_tpu_torch.train.optim import torch_adam
+    from fastegnn_tpu_torch.train.step import make_train_step
+
+    graphs, spec = dtr.graphs[:batch_size], dtr.spec
+    g = dtr.collate(list(range(len(graphs))))
+    init = nbody_model(spec, "cpu").state_dict()
+
+    def fresh():
+        m = nbody_model(spec, "cuda")
+        m.load_state_dict(init)
+        return m, torch_adam(m.parameters(), 5e-4, 1e-12)
+
+    def grads_of(model):
+        return {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+                for k, p in model.named_parameters()}
+
+    def masked_diff(a: dict, b: dict, grads):
+        """Max |a - b| where every gradient in ``grads`` is >= 1e-6 (a None
+        gradient counts as 0), and over all entries, and the count of the
+        entries left out."""
+        masked, full, left = 0.0, 0.0, 0
+        for k in a:
+            keep = torch.stack([gr[k].abs() >= 1e-6 for gr in grads]).all(0)
+            d = (a[k] - b[k]).abs()
+            masked = max(masked, float(d[keep].max()) if bool(keep.any()) else 0.0)
+            full, left = max(full, float(d.max())), left + int((~keep).sum())
+        return masked, full, left
+
+    # the one-process reference: DP_STEPS steps on the whole batch
+    model, opt = fresh()
+    step = make_train_step(model, opt, sigma=1.5, weight=0.0)
+    ref, grads = [], []
+    for i in range(DP_STEPS):
+        ref.append({k: float(v) for k, v in step(g, step_key(43, 0, 1, i)).items()})
+        grads.append(grads_of(model))
+    ref_params = flat_params(model)
+    n_values = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    del model, opt, step
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank, args=(f"{tmp}/dp_store", graphs, spec, init,
+                                            f"{tmp}/dp_rank"),
+                             nprocs=DP_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"dp: the ranks did not end in {DP_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/dp_rank{r}", weights_only=False) for r in range(DP_RANKS)]
+    per_step = {"edge_block_fwd": LAYERS, "edge_block_bwd": LAYERS, "segment_sum": 0}
+    for r, out in enumerate(ranks):
+        check(out["n_graphs"] == len(graphs) // DP_RANKS, f"dp: rank {r}'s sub-batch")
+        check(out["launches"] == {k: v * DP_STEPS for k, v in per_step.items()},
+              f"dp: rank {r} launched {out['launches']} in {DP_STEPS} steps")
+        for i in range(DP_STEPS):
+            check(abs(out["metrics"][i]["mse"] - ref[i]["mse"]) <= 1e-5 * abs(ref[i]["mse"]),
+                  f"dp: rank {r} step {i} mse {out['metrics'][i]['mse']} against {ref[i]['mse']}")
+    for k, v in ranks[0]["params"].items():
+        check(all(torch.equal(v, out["params"][k]) for out in ranks[1:]),
+              f"dp: the ranks' {k} differ")
+    a_diff, a_all, a_left = masked_diff(ranks[0]["params"], ref_params, grads)
+    print(f"[dp] (a) {DP_RANKS} gloo ranks on cuda:0 in {ranks_s:.2f} s (spawn included): "
+          f"{ranks[0]['nodes']} nodes, {ranks[0]['real_edges']} real edges per rank; "
+          f"{DP_STEPS} steps, mse {[m['mse'] for m in ranks[0]['metrics']]} against one process "
+          f"{[m['mse'] for m in ref]}; parameters against one process: max |diff| "
+          f"{a_diff:.3e} where |g| >= 1e-6 (tol {DP_ATOL}), {a_all:.3e} over all, "
+          f"{a_left} of {n_values} values left out; ranks bitwise equal; launches per rank "
+          f"{ranks[0]['launches']}; step ms {ranks[0]['step_ms']}; gloo all_reduce of "
+          f"{n_values} f32 ({n_tensors} tensors) on CUDA: median "
+          f"{ranks[0]['allreduce_ms']:.3f} ms", flush=True)
+    check(a_diff <= DP_ATOL, f"dp: parameters differ from one process by {a_diff:.3e}")
+
+    # (b) a one-rank NCCL group: the DP step at D = 1 is the plain step
+    initialize_distributed("cuda", init_method=f"file://{tmp}/nccl_store", world_size=1,
+                           rank=0, timeout_s=300)
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        kw = dict(sigma=1.5, weight=0.01)
+        m_dp, o_dp = fresh()
+        m_pl, o_pl = fresh()
+        dp_step = make_dp_train_step(m_dp, o_dp, mesh, **kw)
+        plain = make_train_step(m_pl, o_pl, **kw)
+        key = step_key(43, 0, 1, 0)
+        first_dp, first_pl = dp_step(g, key), plain(g, key)
+        b_grads = [grads_of(m_pl)]
+        firsts = [{k: float(v) for k, v in m.items()} for m in (first_dp, first_pl)]
+        check(firsts[0] == firsts[1] and firsts[0]["mmd"] != 0.0,
+              f"dp: one NCCL rank's first step {firsts[0]} against the plain step's {firsts[1]}")
+        b_diff, b_all, b_left = masked_diff(flat_params(m_dp), flat_params(m_pl), b_grads)
+        check(b_diff <= DP_ATOL, f"dp: one NCCL rank's parameters differ by {b_diff:.3e}")
+        reset_launch_counts()
+        ms = {}
+        for name, fn in (("plain", plain), ("dp", dp_step), ("dp again", dp_step),
+                         ("plain again", plain)):
+            times = []
+            for i in range(WARMUP + TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(g, step_key(43, 0, 2, i))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            ms[name] = statistics.median(times[WARMUP:]) * 1e3
+        launches = launch_counts()
+        n_steps = 4 * (WARMUP + TIMED)
+        check(launches == {k: v * n_steps for k, v in per_step.items()},
+              f"dp: (b) launched {launches} in {n_steps} steps")
+    finally:
+        dist.destroy_process_group()
+    print(f"[dp] (b) one NCCL rank, MMD on (sigma 1.5, weight 0.01): first step {firsts[0]} "
+          f"equal to the plain step's; parameters max |diff| {b_diff:.3e} where |g| >= 1e-6, "
+          f"{b_all:.3e} over all ({b_left} left out); median step ms over {TIMED} after "
+          f"{WARMUP} warm-up, in turns plain / dp / dp / plain: {ms}; launches {launches}",
+          flush=True)
+    numbers = dict(nodes=ranks[0]["nodes"], real_edges_per_rank=ranks[0]["real_edges"],
+                   global_real_edges=g.n_real_edges, ranks_s=ranks_s,
+                   gloo_rank_step_ms=ranks[0]["step_ms"],
+                   gloo_allreduce_ms=ranks[0]["allreduce_ms"], grad_values=n_values,
+                   grad_tensors=n_tensors, params_max_abs_diff=a_diff,
+                   params_max_abs_diff_all=a_all, nccl1_params_max_abs_diff=b_diff,
+                   nccl1_step_ms=ms, nccl1_launches=launches)
+    return ranks[0]["launches"], {}, numbers
+
+
 def nbody_phase(tmp: str):
     """Phase 8: the N-body CLI (``run_nbody.sh``'s configuration) on
     trajectories written by the port's generator with a worker per CPU,
@@ -1076,9 +1312,13 @@ def nbody_phase(tmp: str):
     print(f"[nbody] datasets in {time.perf_counter() - t0:.2f} s: sizes {[len(d) for d in sets]}, "
           f"nodes {sets[0].spec.max_nodes}, edges per graph {sets[0].spec.max_edges}, real "
           f"edges per node {edges_per_node(sets)}", flush=True)
+    t0 = time.perf_counter()
+    dp = dp_phase(tmp, sets[0], args.batch_size)
+    print(f"[dp] phase took {time.perf_counter() - t0:.2f} s", flush=True)
     runs = each_model("nbody", parse, sets,
                       ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES + ZOO + ("TFN",))
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
+    runs["dp"] = dp
     runs[SE3] = se3_transformer_phase(f"nbody {SE3}", sets, args.batch_size)
     return runs
 

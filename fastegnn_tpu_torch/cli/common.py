@@ -11,10 +11,23 @@ in ``TripletDataset``, whose batches carry their triplet tables, as the JAX
 CLI wraps them.  ``--model MLP`` raises, as the JAX CLI fails on it:
 ``FullMLP`` takes an array, not a graph batch.  What the port does not have
 raises instead of falling back: a ``--compute_dtype bfloat16`` for a model
-without a bf16 path (the JAX CLI drops it quietly), and a ``--mesh`` over
-more than one device.
+without a bf16 path (the JAX CLI drops it quietly), and ``--mesh graph=G``
+for G > 1 (graph parallelism is not ported yet).
 ``--platform`` names the port's device: absent means the CUDA card,
 ``cpu`` asks for the CPU.
+
+``--mesh data=D`` trains data-parallel over D processes, one per device,
+started by ``torchrun``::
+
+    torchrun --standalone --nproc_per_node D -m fastegnn_tpu_torch.cli.nbody \
+        ... --mesh data=D
+
+Each rank takes ``batch_size / D`` graphs of every global batch
+(``parallel/data_parallel.py``); evaluation runs the one-process eval step
+on whole batches on every rank, as the JAX CLI's does, and the checkpoints
+are the one-process ones.  It raises, before any process group, where the
+JAX CLI raises (DimeNet, DimeNet++ and EGHN, whose JAX steps are custom; a
+batch size that D does not divide), and when the processes are not D.
 """
 
 from __future__ import annotations
@@ -22,9 +35,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
+
+from fastegnn_tpu_torch import resolve_device
+from fastegnn_tpu_torch.parallel.mesh import initialize_distributed, local_device, process_rank
 
 
 def add_common_args(p: argparse.ArgumentParser, *, sigma: float, weight: float,
@@ -61,18 +78,68 @@ def add_common_args(p: argparse.ArgumentParser, *, sigma: float, weight: float,
                    help="write a torch.profiler trace of one training epoch "
                         "(the second) to this directory")
     p.add_argument("--mesh", type=str, default=None,
-                   help="distributed training mesh; the port runs on one "
-                        "device only (data=1,graph=1)")
+                   help="distributed training mesh, e.g. 'data=2': "
+                        "data-parallel over graphs, one process per device "
+                        "(torchrun --nproc_per_node 2); global batch "
+                        "semantics match one-device training, checkpoints "
+                        "are interchangeable; 'graph=G' is not ported yet")
+
+
+# the models whose JAX CLI steps are custom (``apply_fn``), which the JAX
+# ``--mesh`` refuses (fastegnn_tpu/cli/common.py:178-181)
+CUSTOM_STEP_MODELS = ("DimeNet", "DimeNet++", "EGHN")
 
 
 def parse_mesh(spec):
-    """``(data, graph)`` mesh sizes: the port trains on one device, so only
-    no mesh or ``data=1,graph=1`` is accepted."""
-    if spec not in (None, "data=1,graph=1"):
+    """``'data=2,graph=4'`` -> ``(2, 4)``; missing axes default to 1."""
+    sizes = {"data": 1, "graph": 1}
+    if spec:
+        for part in spec.split(","):
+            k, _, v = part.partition("=")
+            k = k.strip()
+            if k not in sizes:
+                raise ValueError(
+                    f"unknown mesh axis {k!r} (have: data, graph)")
+            sizes[k] = int(v)
+            if sizes[k] < 1:
+                raise ValueError(f"mesh axis {k} must be >= 1")
+    return sizes["data"], sizes["graph"]
+
+
+def training_device(platform):
+    """The CLI's device: ``resolve_device(platform)``; under ``torchrun`` on
+    the card, the rank's own card (``parallel/mesh.py::local_device``), made
+    current before the datasets and the model are built on it."""
+    return local_device(resolve_device(platform))
+
+
+def check_mesh(args, device) -> int:
+    """The data axis D of ``args.mesh``, after the checks that come before
+    any process group: what the JAX CLI refuses, graph parallelism, and
+    (for D > 1) D processes (``WORLD_SIZE``) on D devices."""
+    mesh_d, mesh_g = parse_mesh(args.mesh)
+    if mesh_g > 1:
+        raise ValueError(f"--mesh graph={mesh_g}: graph parallelism "
+                         "(parallel/owner_graph.py) is not ported yet; it is "
+                         "ROADMAP.md item 14")
+    if mesh_d == 1:
+        return 1
+    if args.model in CUSTOM_STEP_MODELS:
+        raise ValueError(f"--mesh is not supported for {args.model} (custom step)")
+    if args.batch_size % mesh_d:
+        raise ValueError(f"--batch_size {args.batch_size} must divide by the data "
+                         f"axis {mesh_d}")
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != mesh_d:
         raise ValueError(
-            f"--mesh {spec}: the port trains on one device; data and graph "
-            "parallelism are queued in ROADMAP.md (item 13)")
-    return 1, 1
+            f"--mesh data={mesh_d} trains on {mesh_d} processes, one per device "
+            f"(WORLD_SIZE is {world}): start it with torchrun --standalone "
+            f"--nproc_per_node {mesh_d} -m fastegnn_tpu_torch.cli.<name> ... "
+            f"--mesh data={mesh_d}")
+    if device.type == "cuda" and torch.cuda.device_count() < mesh_d:
+        raise ValueError(f"--mesh data={mesh_d} needs {mesh_d} devices, have "
+                         f"{torch.cuda.device_count()}")
+    return mesh_d
 
 
 @dataclasses.dataclass
@@ -89,14 +156,31 @@ class Training:
 
 def run_training(args, dataset_train, dataset_valid, dataset_test,
                  per_graph_sampling: bool, gravity=None) -> Training:
+    mesh_d = check_mesh(args, dataset_train.device)
+    # a group the caller made is the caller's to end
+    own_group = mesh_d > 1 and not torch.distributed.is_initialized()
+    if own_group:
+        initialize_distributed(dataset_train.device.type)
+    try:
+        return _run_training(args, dataset_train, dataset_valid, dataset_test,
+                             per_graph_sampling, gravity, mesh_d)
+    finally:
+        if own_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run_training(args, dataset_train, dataset_valid, dataset_test, per_graph_sampling,
+                  gravity, mesh_d: int) -> Training:
     from fastegnn_tpu_torch.models import MMD_MODELS, TRIPLET_MODELS, TripletDataset, get_model
     from fastegnn_tpu_torch.train.loop import train
     from fastegnn_tpu_torch.train.optim import torch_adam
     from fastegnn_tpu_torch.utils.seed import fix_seed
 
-    print(f"train/valid/test sizes: {len(dataset_train)}/"
-          f"{len(dataset_valid)}/{len(dataset_test)}")
-    parse_mesh(args.mesh)
+    # rank 0 alone prints, logs, checkpoints and traces
+    main = process_rank() == 0
+    say = print if main else (lambda *a, **k: None)
+    say(f"train/valid/test sizes: {len(dataset_train)}/"
+        f"{len(dataset_valid)}/{len(dataset_test)}")
     spec = dataset_train.spec
     if args.model == "MLP":
         raise ValueError("--model MLP: FullMLP takes an array, not a graph batch, so no "
@@ -115,19 +199,40 @@ def run_training(args, dataset_train, dataset_valid, dataset_test,
         normalize=args.direction_vector_normalize_required, tanh=args.tanh_required,
         gravity=gravity, compute_dtype=getattr(torch, args.compute_dtype),
         device=dataset_train.device, generator=fix_seed(args.seed))
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters())}")
+    say(f"Number of parameters: {sum(p.numel() for p in model.parameters())}")
     optimizer = torch_adam(model.parameters(), args.learning_rate, args.weight_decay)
+    use_mmd = args.model in MMD_MODELS
+    dp = {}
+    if mesh_d > 1:
+        # every rank built the same weights from the seed; eval stays the
+        # one-process step on whole batches (the loop's default), and the
+        # ranks decide on rank 0's eval losses
+        from fastegnn_tpu_torch.parallel import (
+            iter_dp_batches,
+            make_dp_agree,
+            make_dp_train_step,
+            make_mesh,
+        )
+
+        mesh = make_mesh((mesh_d,), ("data",), dataset_train.device.type)
+        dp = dict(
+            train_step_fn=make_dp_train_step(
+                model, optimizer, mesh, sigma=args.sigma, weight=args.weight,
+                sample=args.sample, per_graph_sampling=per_graph_sampling, use_mmd=use_mmd),
+            batch_iter_fn=lambda ds, bs, rng: iter_dp_batches(ds, bs, mesh, rng=rng),
+            agree_fn=make_dp_agree(mesh))
+        say(f"mesh training: data={mesh_d} over {mesh_d} processes")
 
     log_name = f"{args.exp_name}_loss_{time.strftime('%Y-%m-%d_%H-%M-%S')}.json"
     best, log, step = train(
         model, optimizer, dataset_train, dataset_valid, dataset_test,
         batch_size=args.batch_size, sigma=args.sigma, weight=args.weight,
         sample=args.sample, per_graph_sampling=per_graph_sampling,
-        use_mmd=args.model in MMD_MODELS,
+        use_mmd=use_mmd,
         test_interval=args.test_interval, early_stop=args.early_stop,
         max_epochs=args.max_epochs, seed=args.seed,
-        log_directory=args.log_directory, log_name=log_name,
-        ckpt_directory=args.ckpt_directory, resume_from=args.resume,
-        profile_trace_dir=args.profile_trace)
-    print(json.dumps(best, indent=2))
+        log_directory=args.log_directory if main else None, log_name=log_name,
+        ckpt_directory=args.ckpt_directory if main else None, resume_from=args.resume,
+        verbose=main, profile_trace_dir=args.profile_trace if main else None, **dp)
+    say(json.dumps(best, indent=2))
     return Training(best=best, log=log, model=model, optimizer=optimizer, step=step)

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import argparse
 
-from fastegnn_tpu_torch import resolve_device
-from fastegnn_tpu_torch.cli.common import add_common_args, run_training
+from fastegnn_tpu_torch.cli.common import add_common_args, run_training, training_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +44,7 @@ def datasets(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.platform)
+    device = training_device(args.platform)
     run = run_training(args, *datasets(args, device), per_graph_sampling=False)
     return run.best
 

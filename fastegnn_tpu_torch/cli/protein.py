@@ -18,8 +18,7 @@ from __future__ import annotations
 
 import argparse
 
-from fastegnn_tpu_torch import resolve_device
-from fastegnn_tpu_torch.cli.common import add_common_args, run_training
+from fastegnn_tpu_torch.cli.common import add_common_args, run_training, training_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,7 +58,7 @@ def main(argv=None):
         preprocess_adk(args.data_directory, args.npz, backbone=args.backbone)
         print(f"wrote {args.npz}")
         return None
-    device = resolve_device(args.platform)
+    device = training_device(args.platform)
     run = run_training(args, *datasets(args, device), per_graph_sampling=False)
     return run.best
 

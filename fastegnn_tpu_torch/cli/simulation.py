@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import argparse
 
-from fastegnn_tpu_torch import resolve_device
-from fastegnn_tpu_torch.cli.common import add_common_args, run_training
+from fastegnn_tpu_torch.cli.common import add_common_args, run_training, training_device
 
 
 def build_parser():
@@ -31,7 +30,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.platform)
+    device = training_device(args.platform)
 
     from fastegnn_tpu_torch.data.simulation import SimulationDataset
 

@@ -84,6 +84,17 @@ class GraphDataset:
     def collate(self, indices: Sequence[int]) -> GraphBatch:
         return self._to_device(indices, self._host_batch(indices))
 
+    def batch_indices(self, batch_size: int, rng: Optional[np.random.Generator] = None,
+                      drop_last: bool = True) -> List[np.ndarray]:
+        """The index lists of one epoch's batches; shuffled when ``rng`` is
+        given.  ``drop_last`` mirrors the reference loaders."""
+        order = np.arange(len(self.graphs))
+        if rng is not None:
+            rng.shuffle(order)
+        n = len(order)
+        end = n - (n % batch_size) if drop_last else n
+        return [order[lo:lo + batch_size] for lo in range(0, end, batch_size)]
+
     def iter_batches(
         self,
         batch_size: int,
@@ -91,18 +102,14 @@ class GraphDataset:
         drop_last: bool = True,
         prefetch: int = 2,
     ) -> Iterator[GraphBatch]:
-        """Yield batches; shuffled when ``rng`` is given.  ``drop_last``
-        mirrors the reference loaders.
+        """Yield the batches of :meth:`batch_indices`."""
+        yield from self.iter_collated(self.batch_indices(batch_size, rng, drop_last), prefetch)
 
-        ``prefetch`` > 0 collates up to that many batches ahead in
-        background threads, so that the host's collate overlaps the
-        device's step."""
-        order = np.arange(len(self.graphs))
-        if rng is not None:
-            rng.shuffle(order)
-        n = len(order)
-        end = n - (n % batch_size) if drop_last else n
-        index_lists = [order[lo:lo + batch_size] for lo in range(0, end, batch_size)]
+    def iter_collated(self, index_lists: Sequence[np.ndarray],
+                      prefetch: int = 2) -> Iterator[GraphBatch]:
+        """Yield one batch per index list.  ``prefetch`` > 0 collates up to
+        that many batches ahead in background threads, so that the host's
+        collate overlaps the device's step."""
         if prefetch <= 0 or len(index_lists) <= 1:
             for idx in index_lists:
                 yield self.collate(idx)

@@ -14,6 +14,11 @@ The per-step losses stay on the device; each epoch reads them back once.
 Beside the JAX log's keys, ``log_dict["telemetry"]`` keeps per epoch the
 wall seconds, the median train step ms (:class:`StepTimer`), the steps and,
 on a card, the peak device memory.
+
+Under data parallelism (``train_step_fn`` / ``batch_iter_fn`` /
+``agree_fn`` of ``parallel/data_parallel.py``) every rank runs this loop;
+the caller that owns the process group turns printing, the log, the
+checkpoints and the trace off on the ranks other than 0.
 """
 
 from __future__ import annotations
@@ -44,9 +49,9 @@ def _mean(losses) -> float:
     return float(torch.stack(losses).double().mean())
 
 
-def _run_epoch_train(train_step, dataset, batch_size, seed, epoch, rng, timer):
+def _run_epoch_train(train_step, batches, seed, epoch, timer):
     losses = []
-    for i, batch in enumerate(dataset.iter_batches(batch_size, rng=rng)):
+    for i, batch in enumerate(batches):
         timer.start()
         losses.append(train_step(batch, step_key(seed, 0, epoch, i))["mse"])
         timer.stop()
@@ -84,6 +89,8 @@ def train(
     profile_trace_dir: Optional[str] = None,
     train_step_fn=None,
     eval_step_fn=None,
+    batch_iter_fn=None,
+    agree_fn=None,
     shuffle: bool = True,
 ):
     """Train ``model`` in place; returns ``(best_log_dict, log_dict, step)``.
@@ -98,10 +105,16 @@ def train(
     VNEGNN trains on the MSE alone).
 
     ``train_step_fn`` / ``eval_step_fn``: steps ``step(graph, key)`` in
-    place of the default ones.  ``profile_trace_dir``: trace the second
+    place of the default ones.  ``batch_iter_fn(dataset, batch_size,
+    rng=...)``: the training batches in place of ``dataset.iter_batches``
+    (this rank's sub-batches under data parallelism; evaluation stays on
+    whole batches).  ``agree_fn(loss_valid, loss_test)``: the two losses
+    that the best-epoch and early-stop decisions read (rank 0's on every
+    rank under data parallelism).  ``profile_trace_dir``: trace the second
     epoch of this run with :func:`profile_trace`.
     """
     device = next(model.parameters()).device
+    batch_iter_fn = batch_iter_fn or (lambda ds, bs, rng: ds.iter_batches(bs, rng=rng))
     train_step = train_step_fn or make_train_step(
         model, optimizer, sigma, weight, sample, per_graph_sampling, use_mmd)
     eval_step = eval_step_fn or make_eval_step(
@@ -132,7 +145,8 @@ def train(
         t_epoch = time.perf_counter()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        args = (train_step, dataset_train, batch_size, seed, epoch, shuffle_rng, timer)
+        args = (train_step, batch_iter_fn(dataset_train, batch_size, rng=shuffle_rng),
+                seed, epoch, timer)
         if profile_trace_dir is not None and epoch == start_epoch + 1:
             # the second epoch: the first one pays the kernels' first launches
             with profile_trace(profile_trace_dir):
@@ -151,6 +165,14 @@ def train(
             loss_valid = _run_epoch_eval(eval_step, dataset_valid, batch_size, seed, epoch)
             loss_test = _run_epoch_eval(eval_step, dataset_test, batch_size, seed,
                                         epoch + 10_000_000)
+            # every rank must take the best-epoch and early-stop decisions
+            # below alike, or a rank that went on would wait in the next
+            # step's all_reduce until the group's timeout; each rank's eval
+            # of the same parameters on the same batches can still differ in
+            # its last bits on the card (float atomics), so they all decide
+            # on one rank's losses
+            if agree_fn is not None:
+                loss_valid, loss_test = agree_fn(loss_valid, loss_test)
             log_dict["epochs"].append(epoch)
             log_dict["loss"].append(loss_test)
             if verbose:

@@ -84,8 +84,10 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [(["--model", "TFN", "--compute_dtype", "bfloat16"],
                                           "float32 only"),
-                                         (["--mesh", "data=2"], "item 13"),
-                                         (["--mesh", "data=1,graph=2"], "item 13"),
+                                         (["--mesh", "data=2"], "torchrun"),
+                                         (["--mesh", "graph=2"], "item 14"),
+                                         (["--model", "EGHN", "--mesh", "data=2"],
+                                          "custom step"),
                                          (["--model", "MLP"], "not a graph batch"),
                                          (["--model", "EGHN"], "local bond edges")])
 def test_cli_raises_on_what_the_port_does_not_have(data, flags, match):
