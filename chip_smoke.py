@@ -32,7 +32,16 @@ Phases, in order; any failure raises and exits non-zero before the last line:
 5. the variant path: the same configuration with ``attention=True`` in f32
    (the CLI's ``--attention_required`` off the TPU), whose edge block takes
    the CSR branch and its segment-sum kernel, run and read the same way;
-6. the CLI path: ``cli.common.run_training`` with the Water-3D CLI's
+6. the graph-parallel path ``[gp]`` (``gp_phase``) on the main path's
+   graph in f32: (a) two gloo ranks on the card, each holding its 4000
+   owned rows and its halo table (``parallel/owner_graph.py``), against
+   one process: the f32 and bf16 forwards, two train steps on the same MMD
+   draws, 4 + 4 f32 edge launches per rank step; S, the halo bytes per
+   layer, the ``all_to_all``'s and the steps' ms; then the f32 edge
+   kernels against their plain versions on rank 0's table (a src table
+   longer than its dst rows); (b) a one-rank NCCL group: the owner step
+   against the plain step, both timed, then a profiler window over each;
+7. the CLI path: ``cli.common.run_training`` with the Water-3D CLI's
    defaults (f32, so the f32 edge kernels; batch 20; ``--virtual_channel 3
    --cutoff_rate 0.5``, and ``--radius 0.075`` for Water-3D's mean degree),
    3 epochs on the synthetic Water-3D trajectories (3 per split, 8000
@@ -42,10 +51,10 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    under the profiler (the epoch's busy share); then a profiler window over
    its train step, and the f32 edge kernels against their plain versions
    on that step's 20-graph batch;
-7. the rollout: ``train.rollout.make_rollout`` over 5 steps on one test
+8. the rollout: ``train.rollout.make_rollout`` over 5 steps on one test
    graph of the trained model, 4 forward launches per step; then the f32
    edge kernels against their plain versions on that graph;
-8. the N-body path: the port's generator writes ``100_0_0`` (100
+9. the N-body path: the port's generator writes ``100_0_0`` (100
    trajectories per split, 4100 steps, a spawned worker per CPU); on the
    first batch of its train split the data-parallel path ``[dp]``
    (``dp_phase``: two gloo ranks on the card, each on its half, against
@@ -77,7 +86,7 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    JAX defaults through the train step on that batch (timed steps, a
    profiler window, its softmax denominators' and weighted values' sums at
    src held);
-9. the protein path: the same for the protein CLI (``run_protein.sh``:
+10. the protein path: the same for the protein CLI (``run_protein.sh``:
    batch 50, sigma 1.0, weight 0.5, delta_frame 15, ``--cutoff_rate 0.5``)
    on a synthetic 856-atom chain of 270 frames (151 / 50 / 52 samples),
    for the five models (VNEGNN's virtual positions from the batch's
@@ -86,13 +95,15 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    the chain's bonds, the segment-sum kernel held in its bond forms
    (through ``local_perm`` / ``local_src_perm``) and its pooled
    adjacency's;
-10. the equivariance CLI on the card at 10 and 100 nodes for the five
+11. the equivariance CLI on the card at 10 and 100 nodes for the five
    models and EGNN, RF, Linear, SchNet and TFN: every trial within 1e-4,
    with each model's launches.
 
-Each of phases 8-10 prints its seconds.  Output: one JSON line
+Phases 6 and 9-11 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
-``[dp]``'s as ``nbody_dp_launches`` (rank 0's), and
+``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[gp]``'s as
+``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
+f32 checks on ``[gp]``'s table as ``gp_table_f32``, and
 its f32 checks on the CLI batch, the rollout graph and the N-body and
 protein batches), the nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
@@ -139,6 +150,11 @@ PATH_EPOCHS = 2
 # one process, the parameters' tolerance there (measured on the H100 at
 # 700 W: 1.5e-8 where |g| >= 1e-6, 6.0e-7 over all), the ranks' time limit
 DP_RANKS, DP_STEPS, DP_ATOL, DP_JOIN_S = 2, 2, 1e-6, 300
+# the graph-parallel path ([gp]): ranks on the one card, each holding half
+# of the main path's graph; steps held against one process; the forward's
+# tolerances (of the largest value) in f32 and bf16; the ranks' time limit
+GP_RANKS, GP_STEPS, GP_FWD_TOL, GP_BF16_TOL, GP_JOIN_S = 2, 2, 1e-4, 2e-2, 300
+GP_STEP_KW = dict(sigma=1.0, weight=0.01, sample=3, per_graph_sampling=True)   # the main path's
 # the port's kernels, which [profile] lists wherever they rank
 OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 KERNELS = ("edge_block_fwd", "edge_block_bwd", "segment_sum")
@@ -1066,6 +1082,28 @@ def flat_params(model):
     return {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()}
 
 
+def grads_of(model):
+    import torch
+
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def masked_diff(a: dict, b: dict, grads):
+    """Max |a - b| where every gradient in ``grads`` is >= 1e-6 (a None
+    gradient counts as 0), and over all entries, and the count of the
+    entries left out."""
+    import torch
+
+    masked, full, left = 0.0, 0.0, 0
+    for k in a:
+        keep = torch.stack([gr[k].abs() >= 1e-6 for gr in grads]).all(0)
+        d = (a[k] - b[k]).abs()
+        masked = max(masked, float(d[keep].max()) if bool(keep.any()) else 0.0)
+        full, left = max(full, float(d.max())), left + int((~keep).sum())
+    return masked, full, left
+
+
 def dp_rank(rank: int, store: str, graphs, spec, state: dict, out: str) -> None:
     """[dp] (a): one of DP_RANKS gloo ranks on cuda:0, spawned by
     ``dp_phase``: ``DP_STEPS`` data-parallel train steps (N-body CLI
@@ -1158,22 +1196,6 @@ def dp_phase(tmp: str, dtr, batch_size: int) -> tuple:
         m = nbody_model(spec, "cuda")
         m.load_state_dict(init)
         return m, torch_adam(m.parameters(), 5e-4, 1e-12)
-
-    def grads_of(model):
-        return {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
-                for k, p in model.named_parameters()}
-
-    def masked_diff(a: dict, b: dict, grads):
-        """Max |a - b| where every gradient in ``grads`` is >= 1e-6 (a None
-        gradient counts as 0), and over all entries, and the count of the
-        entries left out."""
-        masked, full, left = 0.0, 0.0, 0
-        for k in a:
-            keep = torch.stack([gr[k].abs() >= 1e-6 for gr in grads]).all(0)
-            d = (a[k] - b[k]).abs()
-            masked = max(masked, float(d[keep].max()) if bool(keep.any()) else 0.0)
-            full, left = max(full, float(d.max())), left + int((~keep).sum())
-        return masked, full, left
 
     # the one-process reference: DP_STEPS steps on the whole batch
     model, opt = fresh()
@@ -1274,6 +1296,269 @@ def dp_phase(tmp: str, dtr, batch_size: int) -> tuple:
                    params_max_abs_diff_all=a_all, nccl1_params_max_abs_diff=b_diff,
                    nccl1_step_ms=ms, nccl1_launches=launches)
     return ranks[0]["launches"], {}, numbers
+
+
+def gp_model(bf16: bool, state):
+    """The main path's FastEGNN (H=64, C=3, L=4, gravity) on the card, in
+    f32 or bf16, with the weights ``state`` (None: drawn from seed 0)."""
+    import torch
+
+    from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
+
+    model = FastEGNN(2, 2, hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=LAYERS,
+                     gravity=(0.0, -1.0, 0.0),
+                     compute_dtype=torch.bfloat16 if bf16 else torch.float32, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def gp_rank(rank: int, store: str, host, state: dict, draws, out: str) -> None:
+    """[gp] (a): one of GP_RANKS gloo ranks on cuda:0, spawned by
+    ``gp_phase``: its shard of the main path's graph, the f32 and bf16
+    owner-sharded forwards, ``GP_STEPS`` train steps on ``draws`` (launches
+    counted), then ``TIMED`` more steps and the halo ``all_to_all`` alone,
+    timed.  Writes its results to ``out`` followed by its rank."""
+    import torch
+    import torch.distributed as dist
+
+    from fastegnn_tpu_torch.parallel import (
+        make_mesh,
+        make_owner_gp_forward,
+        make_owner_gp_train_step,
+        make_owner_sharded_batch,
+    )
+    from fastegnn_tpu_torch.train.optim import torch_adam
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=GP_RANKS,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((GP_RANKS,), ("graph",), "cuda")
+        shard = make_owner_sharded_batch(host, GP_RANKS, shard=rank, device="cuda")
+        model = gp_model(False, state)
+        x, vloc = make_owner_gp_forward(model, mesh)(shard)
+        x16, vloc16 = make_owner_gp_forward(gp_model(True, state), mesh)(shard)
+        step = make_owner_gp_train_step(model, torch_adam(model.parameters(), 5e-4, 1e-12),
+                                        mesh, **GP_STEP_KW)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        metrics = [{k: float(v) for k, v in step(shard, draw=d.cuda()).items()} for d in draws]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        params = flat_params(model)
+        times = []
+        for i in range(WARMUP + TIMED):
+            t0 = time.perf_counter()
+            step(shard, draw=draws[i % len(draws)].cuda())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        send = torch.randn(tuple(shard.send_idx.shape) + (HIDDEN + 3,), device="cuda")
+        got = torch.empty_like(send)
+        a2a = []
+        for _ in range(WARMUP + TIMED):
+            t0 = time.perf_counter()
+            dist.all_to_all_single(got, send, group=mesh.get_group("graph"))
+            torch.cuda.synchronize()
+            a2a.append(time.perf_counter() - t0)
+        torch.save(dict(x=x.cpu(), vloc=vloc.cpu(), x16=x16.cpu(), vloc16=vloc16.cpu(),
+                        metrics=metrics, launches=launches, params=params,
+                        step_ms=statistics.median(times[WARMUP:]) * 1e3,
+                        a2a_ms=statistics.median(a2a[WARMUP:]) * 1e3,
+                        owned=shard.n_owned, halo=shard.send_idx.shape[1],
+                        table=shard.rowptr.shape[0] - 1, edges=shard.n_real_edges),
+                   f"{out}{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def gp_table_view(host, n_shards: int, shard: int):
+    """Shard ``shard``'s edges over its table, as ``kernel_phase`` reads a
+    graph: the coordinates of its owned rows, then of the rows each shard
+    sends it (on the card)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from fastegnn_tpu_torch.parallel import make_owner_sharded_batch
+
+    shards = [make_owner_sharded_batch(host, n_shards, shard=j, device="cuda")
+              for j in range(n_shards)]
+    mine = shards[shard]
+    coord = torch.cat([mine.coord] + [s.coord[s.send_idx[shard].long()] for s in shards])
+    return SimpleNamespace(device=coord.device, num_nodes=coord.shape[0], coord=coord,
+                           n_real_edges=mine.n_real_edges, rowptr=mine.rowptr, src=mine.src,
+                           dst=mine.dst, edge_attr=mine.edge_attr)
+
+
+def gp_phase(tmp: str, g) -> dict:
+    """The owner-sharded graph-parallel path on the one card, on the main
+    path's graph (8000 nodes, 580,032 real edges) at its configuration:
+    (a) ``GP_RANKS`` gloo ranks on cuda:0, each on its owned rows and its
+    halo table, against one process: the f32 forward (``GP_FWD_TOL`` of the
+    largest value), ``GP_STEPS`` f32 train steps on the same MMD draws (the
+    MSE to 1e-6 relative, the parameters to ``DP_ATOL`` where |g| >= 1e-6),
+    the bf16 forward (``GP_BF16_TOL``), 4 + 4 f32 edge-kernel launches per
+    rank step; S, the halo bytes per layer, the ``all_to_all``'s and the
+    steps' ms; the f32 edge kernels against their plain versions on rank
+    0's table; (b) a one-rank NCCL group: the owner step (G = 1, NCCL's
+    ``all_to_all_single``) against the plain step, both timed, then a
+    profiler window over each."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fastegnn_tpu_torch.parallel import (
+        halo_pair_rows,
+        initialize_distributed,
+        make_mesh,
+        make_owner_gp_train_step,
+        make_owner_sharded_batch,
+    )
+    from fastegnn_tpu_torch.train.optim import torch_adam
+    from fastegnn_tpu_torch.train.step import make_train_step
+
+    host = g.to("cpu")
+    gen = torch.Generator().manual_seed(3)
+    state = {k: v.cpu() for k, v in gp_model(False, None).state_dict().items()}
+    draws = [torch.rand((1, g.num_nodes), generator=gen) for _ in range(GP_STEPS)]
+    per_step = {"edge_block_fwd": LAYERS, "edge_block_bwd": LAYERS, "segment_sum": 0}
+
+    # one process: the forwards, GP_STEPS steps on the draws, then timed steps
+    with torch.no_grad():
+        x_ref, v_ref = gp_model(False, state)(g)
+        x16_ref, v16_ref = gp_model(True, state)(g)
+    model = gp_model(False, state)
+    plain = make_train_step(model, torch_adam(model.parameters(), 5e-4, 1e-12), **GP_STEP_KW)
+    ref, grads = [], []
+    for d in draws:
+        ref.append({k: float(v) for k, v in plain(g, draw=d.cuda()).items()})
+        grads.append(grads_of(model))
+    ref_params = flat_params(model)
+    times = []
+    for i in range(WARMUP + TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(g, draw=draws[i % GP_STEPS].cuda())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    one_ms = statistics.median(times[WARMUP:]) * 1e3
+    del model, plain
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(gp_rank, args=(f"{tmp}/gp_store", host, state, draws,
+                                            f"{tmp}/gp_rank"),
+                             nprocs=GP_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + GP_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"gp: the ranks did not end in {GP_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/gp_rank{r}", weights_only=False) for r in range(GP_RANKS)]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    want = {k: v.cpu() for k, v in (("x", x_ref), ("vloc", v_ref), ("x16", x16_ref),
+                                    ("vloc16", v16_ref))}
+    errs = {}
+    for r, out in enumerate(ranks):
+        for k, tol in (("x", GP_FWD_TOL), ("vloc", GP_FWD_TOL), ("x16", GP_BF16_TOL),
+                       ("vloc16", GP_BF16_TOL)):
+            errs[k] = max(errs.get(k, 0.0), rel(out[k], want[k]))
+            check(errs[k] <= tol, f"gp: rank {r}'s {k} is {errs[k]:.3e} of the largest value "
+                                  f"from one process's (tol {tol:g})")
+        check(out["launches"] == {k: v * GP_STEPS for k, v in per_step.items()},
+              f"gp: rank {r} launched {out['launches']} in {GP_STEPS} steps")
+        for i in range(GP_STEPS):
+            check(abs(out["metrics"][i]["mse"] - ref[i]["mse"]) <= 1e-6 * abs(ref[i]["mse"]),
+                  f"gp: rank {r} step {i} mse {out['metrics'][i]['mse']} against {ref[i]['mse']}")
+    for k, v in ranks[0]["params"].items():
+        check(all(torch.equal(v, out["params"][k]) for out in ranks[1:]),
+              f"gp: the ranks' {k} differ")
+    a_diff, a_all, a_left = masked_diff(ranks[0]["params"], ref_params, grads)
+    check(a_diff <= DP_ATOL, f"gp: parameters differ from one process by {a_diff:.3e}")
+    halo = ranks[0]["halo"]
+    halo_bytes = GP_RANKS * halo * (HIDDEN + 3) * 4
+    pair_rows = halo_pair_rows(host, GP_RANKS)
+    print(f"[gp] (a) {GP_RANKS} gloo ranks on cuda:0 in {ranks_s:.2f} s (spawn included): "
+          f"owned rows {[o['owned'] for o in ranks]}, S {halo} (all pairs {pair_rows} real "
+          f"rows), tables {[o['table'] for o in ranks]} rows, real edges "
+          f"{[o['edges'] for o in ranks]}; halo block [{GP_RANKS}, {halo}, {HIDDEN + 3}] f32 = "
+          f"{halo_bytes} B per layer per rank each way; forward against one process: f32 x "
+          f"{errs['x']:.3e}, vloc {errs['vloc']:.3e} (tol {GP_FWD_TOL:g}), bf16 x "
+          f"{errs['x16']:.3e}, vloc {errs['vloc16']:.3e} (tol {GP_BF16_TOL:g}) of the largest "
+          f"value; {GP_STEPS} steps, mse {[m['mse'] for m in ranks[0]['metrics']]} against "
+          f"{[m['mse'] for m in ref]}; parameters max |diff| {a_diff:.3e} where |g| >= 1e-6 "
+          f"(tol {DP_ATOL}), {a_all:.3e} over all ({a_left} left out); ranks bitwise equal; "
+          f"launches per rank {ranks[0]['launches']}; median step ms over {TIMED} after "
+          f"{WARMUP}: ranks {[o['step_ms'] for o in ranks]}, one process {one_ms:.3f}; gloo "
+          f"all_to_all of the halo block on CUDA: median ms {[o['a2a_ms'] for o in ranks]}",
+          flush=True)
+    table = kernel_phase(gp_table_view(host, GP_RANKS, 0), torch.Generator().manual_seed(9),
+                         modes=(False,), tag="gp table")
+
+    # (b) a one-rank NCCL group: the owner step at G = 1 against the plain step
+    initialize_distributed("cuda", init_method=f"file://{tmp}/gp_nccl_store", world_size=1,
+                           rank=0, timeout_s=300)
+    try:
+        mesh = make_mesh((1,), ("graph",), "cuda")
+        shard = make_owner_sharded_batch(host, 1, shard=0, device="cuda")
+        m_gp, m_pl = gp_model(False, state), gp_model(False, state)
+        owner = make_owner_gp_train_step(m_gp, torch_adam(m_gp.parameters(), 5e-4, 1e-12), mesh,
+                                         **GP_STEP_KW)
+        plain = make_train_step(m_pl, torch_adam(m_pl.parameters(), 5e-4, 1e-12), **GP_STEP_KW)
+        d = draws[0].cuda()
+        firsts = [{k: float(v) for k, v in fn(b, draw=d).items()}
+                  for fn, b in ((owner, shard), (plain, g))]
+        check(all(abs(firsts[0][k] - firsts[1][k]) <= 1e-6 * abs(firsts[1][k]) for k in firsts[1]),
+              f"gp: one NCCL rank's first step {firsts[0]} against the plain step's {firsts[1]}")
+        b_diff, b_all, b_left = masked_diff(flat_params(m_gp), flat_params(m_pl), [grads_of(m_pl)])
+        check(b_diff <= DP_ATOL, f"gp: one NCCL rank's parameters differ by {b_diff:.3e}")
+        reset_launch_counts()
+        ms = {}
+        for name, fn, b in (("plain", plain, g), ("owner", owner, shard),
+                            ("owner again", owner, shard), ("plain again", plain, g)):
+            times = []
+            for i in range(WARMUP + TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(b, draw=draws[i % GP_STEPS].cuda())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            ms[name] = statistics.median(times[WARMUP:]) * 1e3
+        launches = launch_counts()
+        n_steps = 4 * (WARMUP + TIMED)
+        check(launches == {k: v * n_steps for k, v in per_step.items()},
+              f"gp: (b) launched {launches} in {n_steps} steps")
+        # where the owner step's extra time goes: device kernels or host
+        profiled = {name: profile_window(lambda b, fn=fn: fn(b, draw=d), b, f"gp (b) {name}")
+                    for name, fn, b in (("plain step", plain, g),
+                                        ("owner step, G = 1", owner, shard))}
+    finally:
+        dist.destroy_process_group()
+    print(f"[gp] (b) one NCCL rank (G = 1): first step {firsts[0]} against the plain step's "
+          f"{firsts[1]}; parameters max |diff| {b_diff:.3e} where |g| >= 1e-6, {b_all:.3e} over "
+          f"all ({b_left} left out); median step ms over {TIMED} after {WARMUP} warm-up, in "
+          f"turns plain / owner / owner / plain: {ms}; launches {launches}", flush=True)
+    return dict(launches=ranks[0]["launches"], nccl1_launches=launches, table=table,
+                numbers=dict(owned=[o["owned"] for o in ranks], halo_rows=halo,
+                             halo_pair_rows=pair_rows, tables=[o["table"] for o in ranks],
+                             edges=[o["edges"] for o in ranks], halo_bytes=halo_bytes,
+                             a2a_ms=[o["a2a_ms"] for o in ranks],
+                             rank_step_ms=[o["step_ms"] for o in ranks], one_process_step_ms=one_ms,
+                             forward_rel_err=errs, params_max_abs_diff=a_diff,
+                             params_max_abs_diff_all=a_all, ranks_s=ranks_s,
+                             nccl1_params_max_abs_diff=b_diff, nccl1_step_ms=ms,
+                             nccl1_profiled=profiled))
 
 
 def nbody_phase(tmp: str):
@@ -1448,11 +1733,17 @@ def main() -> int:
     var_launches, var_step_ms, var_rate = train_path_phase(
         g, n_real, "variant", attention=True, bf16=False,
         per_step={"edge_block_fwd": 0, "edge_block_bwd": 0, "segment_sum": 3 * LAYERS})
+    phase_s = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gp = gp_phase(tmp, g)
+    phase_s["gp"] = time.perf_counter() - t0
+    print(f"[gp] phase took {phase_s['gp']:.2f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_kern, trained, test_set = cli_phase(tmp)
     roll_kern = rollout_phase(trained, test_set)
     del trained, test_set
-    paths, phase_s = {}, {}
+    paths = {}
     for name, phase in (("nbody", nbody_phase), ("protein", protein_phase)):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
@@ -1481,6 +1772,8 @@ def main() -> int:
             **{f"{p}_VNEGNN_f32": paths[p]["VNEGNN"][1][(kind, "f32")]
                for p in ("nbody", "protein")},
             **path_launches(paths, name),
+            "gp_launches": gp["launches"][name], "gp_nccl1_launches": gp["nccl1_launches"][name],
+            "gp_table_f32": gp["table"][(kind, "f32")],
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",
@@ -1490,6 +1783,8 @@ def main() -> int:
         "launches": var_launches["segment_sum"], "mode": "dst f32",
         "cli_launches": cli_launches["segment_sum"],
         **path_launches(paths, "segment_sum"),
+        "gp_launches": gp["launches"]["segment_sum"],
+        "gp_nccl1_launches": gp["nccl1_launches"]["segment_sum"],
         **seg["dst f32"],
         "forms": {k: v for k, v in seg.items() if k != "dst f32"},
         **{f"{p}_{m}_forms": run[1] for p in ("nbody", "protein")
@@ -1497,7 +1792,7 @@ def main() -> int:
     })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,
-                      "variant_M_edge_messages_per_s": var_rate,
+                      "variant_M_edge_messages_per_s": var_rate, "gp": gp["numbers"],
                       **{p: {m: run[2] for m, run in paths[p].items()}
                          for p in ("nbody", "protein")},
                       "equivariance_max_abs_err": eq_errors, "phase_s": phase_s}),

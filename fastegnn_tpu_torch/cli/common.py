@@ -11,8 +11,7 @@ in ``TripletDataset``, whose batches carry their triplet tables, as the JAX
 CLI wraps them.  ``--model MLP`` raises, as the JAX CLI fails on it:
 ``FullMLP`` takes an array, not a graph batch.  What the port does not have
 raises instead of falling back: a ``--compute_dtype bfloat16`` for a model
-without a bf16 path (the JAX CLI drops it quietly), and ``--mesh graph=G``
-for G > 1 (graph parallelism is not ported yet).
+without a bf16 path (the JAX CLI drops it quietly).
 ``--platform`` names the port's device: absent means the CUDA card,
 ``cpu`` asks for the CPU.
 
@@ -25,9 +24,24 @@ started by ``torchrun``::
 Each rank takes ``batch_size / D`` graphs of every global batch
 (``parallel/data_parallel.py``); evaluation runs the one-process eval step
 on whole batches on every rank, as the JAX CLI's does, and the checkpoints
-are the one-process ones.  It raises, before any process group, where the
-JAX CLI raises (DimeNet, DimeNet++ and EGHN, whose JAX steps are custom; a
-batch size that D does not divide), and when the processes are not D.
+are the one-process ones.
+
+``--mesh graph=G`` and ``--mesh data=D,graph=G`` train FastEGNN
+owner-sharded over D x G processes (``parallel/owner_graph.py``): each of
+the G processes of a data replica holds 1/G of the replica's node rows and
+the edges into them, runs the fused edge kernels on its rows plus the halo
+rows one ``all_to_all`` per layer brings it, and sums the per-graph pools
+over the replica.  Evaluation runs owner-sharded too, on batches
+partitioned once and kept.  The ``--compute_dtype`` default stays
+float32 (the JAX CLI's bf16 default for it holds on a TPU only)::
+
+    torchrun --standalone --nproc_per_node 2 -m fastegnn_tpu_torch.cli.nbody \
+        ... --mesh graph=2
+
+The mesh raises, before any process group, where the JAX CLI raises
+(DimeNet, DimeNet++ and EGHN, whose JAX steps are custom; a batch size that
+D does not divide; for G > 1, a model other than FastEGNN and
+attention, tanh or normalize), and when the processes are not D x G.
 """
 
 from __future__ import annotations
@@ -78,11 +92,13 @@ def add_common_args(p: argparse.ArgumentParser, *, sigma: float, weight: float,
                    help="write a torch.profiler trace of one training epoch "
                         "(the second) to this directory")
     p.add_argument("--mesh", type=str, default=None,
-                   help="distributed training mesh, e.g. 'data=2': "
-                        "data-parallel over graphs, one process per device "
-                        "(torchrun --nproc_per_node 2); global batch "
-                        "semantics match one-device training, checkpoints "
-                        "are interchangeable; 'graph=G' is not ported yet")
+                   help="distributed training mesh, e.g. 'data=2', 'graph=2' or "
+                        "'data=2,graph=2': data-parallel over graphs x "
+                        "owner-sharded graph parallelism (FastEGNN) within each "
+                        "replica, one process per device (torchrun "
+                        "--nproc_per_node D*G); global batch semantics match "
+                        "one-device training, checkpoints are interchangeable, "
+                        "and eval runs under the same mesh")
 
 
 # the models whose JAX CLI steps are custom (``apply_fn``), which the JAX
@@ -113,33 +129,38 @@ def training_device(platform):
     return local_device(resolve_device(platform))
 
 
-def check_mesh(args, device) -> int:
-    """The data axis D of ``args.mesh``, after the checks that come before
-    any process group: what the JAX CLI refuses, graph parallelism, and
-    (for D > 1) D processes (``WORLD_SIZE``) on D devices."""
+def check_mesh(args, device):
+    """``(D, G)`` of ``args.mesh``, after the checks that come before any
+    process group: what the JAX CLI refuses, and (for D x G > 1) D x G
+    processes (``WORLD_SIZE``) on as many devices."""
     mesh_d, mesh_g = parse_mesh(args.mesh)
+    n = mesh_d * mesh_g
     if mesh_g > 1:
-        raise ValueError(f"--mesh graph={mesh_g}: graph parallelism "
-                         "(parallel/owner_graph.py) is not ported yet; it is "
-                         "ROADMAP.md item 14")
-    if mesh_d == 1:
-        return 1
+        if args.model != "FastEGNN":
+            raise ValueError(f"--mesh graph={mesh_g} is only supported for FastEGNN "
+                             f"(got {args.model}); use --mesh data=D for other models")
+        if (args.attention_required or args.tanh_required
+                or args.direction_vector_normalize_required):
+            raise ValueError("--mesh graph=G supports the paper FastEGNN configuration "
+                             "only (no attention/tanh/normalize)")
+    if n == 1:
+        return 1, 1
     if args.model in CUSTOM_STEP_MODELS:
         raise ValueError(f"--mesh is not supported for {args.model} (custom step)")
     if args.batch_size % mesh_d:
         raise ValueError(f"--batch_size {args.batch_size} must divide by the data "
                          f"axis {mesh_d}")
     world = os.environ.get("WORLD_SIZE")
-    if world is None or int(world) != mesh_d:
+    if world is None or int(world) != n:
         raise ValueError(
-            f"--mesh data={mesh_d} trains on {mesh_d} processes, one per device "
+            f"--mesh {args.mesh} trains on {n} processes, one per device "
             f"(WORLD_SIZE is {world}): start it with torchrun --standalone "
-            f"--nproc_per_node {mesh_d} -m fastegnn_tpu_torch.cli.<name> ... "
-            f"--mesh data={mesh_d}")
-    if device.type == "cuda" and torch.cuda.device_count() < mesh_d:
-        raise ValueError(f"--mesh data={mesh_d} needs {mesh_d} devices, have "
+            f"--nproc_per_node {n} -m fastegnn_tpu_torch.cli.<name> ... "
+            f"--mesh {args.mesh}")
+    if device.type == "cuda" and torch.cuda.device_count() < n:
+        raise ValueError(f"--mesh {args.mesh} needs {n} devices, have "
                          f"{torch.cuda.device_count()}")
-    return mesh_d
+    return mesh_d, mesh_g
 
 
 @dataclasses.dataclass
@@ -156,21 +177,21 @@ class Training:
 
 def run_training(args, dataset_train, dataset_valid, dataset_test,
                  per_graph_sampling: bool, gravity=None) -> Training:
-    mesh_d = check_mesh(args, dataset_train.device)
+    mesh_d, mesh_g = check_mesh(args, dataset_train.device)
     # a group the caller made is the caller's to end
-    own_group = mesh_d > 1 and not torch.distributed.is_initialized()
+    own_group = mesh_d * mesh_g > 1 and not torch.distributed.is_initialized()
     if own_group:
         initialize_distributed(dataset_train.device.type)
     try:
         return _run_training(args, dataset_train, dataset_valid, dataset_test,
-                             per_graph_sampling, gravity, mesh_d)
+                             per_graph_sampling, gravity, mesh_d, mesh_g)
     finally:
         if own_group and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
 
 def _run_training(args, dataset_train, dataset_valid, dataset_test, per_graph_sampling,
-                  gravity, mesh_d: int) -> Training:
+                  gravity, mesh_d: int, mesh_g: int) -> Training:
     from fastegnn_tpu_torch.models import MMD_MODELS, TRIPLET_MODELS, TripletDataset, get_model
     from fastegnn_tpu_torch.train.loop import train
     from fastegnn_tpu_torch.train.optim import torch_adam
@@ -203,7 +224,40 @@ def _run_training(args, dataset_train, dataset_valid, dataset_test, per_graph_sa
     optimizer = torch_adam(model.parameters(), args.learning_rate, args.weight_decay)
     use_mmd = args.model in MMD_MODELS
     dp = {}
-    if mesh_d > 1:
+    if mesh_g > 1:
+        # every rank built the same weights from the seed; train and eval
+        # run owner-sharded, the eval batches partitioned once and kept, and
+        # the ranks decide on rank 0's eval losses
+        from fastegnn_tpu_torch.parallel import (
+            OwnerBatchFactory,
+            iter_owner_sharded_batches,
+            make_dp_agree,
+            make_mesh,
+            make_owner_gp_eval_step,
+            make_owner_gp_train_step,
+        )
+
+        mesh = make_mesh((mesh_d, mesh_g), ("data", "graph"), dataset_train.device.type)
+        kw = dict(sigma=args.sigma, weight=args.weight, sample=args.sample,
+                  per_graph_sampling=per_graph_sampling, use_mmd=use_mmd)
+        factory = OwnerBatchFactory(mesh_g)
+        eval_cache = {}
+
+        def eval_batch_iter_fn(dataset, batch_size):
+            k = (id(dataset), batch_size)
+            if k not in eval_cache:
+                eval_cache[k] = list(iter_owner_sharded_batches(dataset, batch_size, mesh,
+                                                                factory))
+            return iter(eval_cache[k])
+
+        dp = dict(
+            train_step_fn=make_owner_gp_train_step(model, optimizer, mesh, **kw),
+            eval_step_fn=make_owner_gp_eval_step(model, mesh, **kw),
+            batch_iter_fn=lambda ds, bs, rng: iter_owner_sharded_batches(
+                ds, bs, mesh, factory, rng=rng),
+            eval_batch_iter_fn=eval_batch_iter_fn, agree_fn=make_dp_agree(mesh))
+        say(f"mesh training: data={mesh_d} x graph={mesh_g} over {mesh_d * mesh_g} processes")
+    elif mesh_d > 1:
         # every rank built the same weights from the seed; eval stays the
         # one-process step on whole batches (the loop's default), and the
         # ranks decide on rank 0's eval losses

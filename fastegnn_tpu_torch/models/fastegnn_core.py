@@ -25,7 +25,9 @@ They read a layer's weights in the reference layout (``EGCLVel``,
 coordinates ``[B, C, 3]``, features ``[B, C, H]``, per-node virtual
 messages ``[n, C, H]``.  The per-graph gather is a broadcast over the
 batch's ``[B, n_max]`` node layout (:func:`per_graph_take`) and the
-per-graph pool a masked ``index_add_`` mean.
+per-graph pool a masked ``index_add_`` mean, unless the caller passes its
+own ``take`` / ``pool`` (the owner-sharded path, ``parallel/owner_graph.py``,
+whose rows are one shard of the batch).
 """
 
 from __future__ import annotations
@@ -146,23 +148,31 @@ class VirtualBlock:
 
 
 def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, graph_id, node_mask,
-                  pool_messages: bool = True) -> VirtualBlock:
+                  pool_messages: bool = True, take=None, pool=None) -> VirtualBlock:
     """The dense real <-> virtual block of FastEGNN, FastRF and FastSchNet
     (the JAX package keeps a copy in each: ``fast_egnn.py``,
     ``fast_rf.py:51-107``, ``schnet.py:201-267``): vdiff, vrad and the gram
     matrix, phi_ev with its first layer split by input block, the gate heads
     phi_xv and phi_X, the virtual coordinate update and, when
     ``pool_messages``, the pooled messages.  The caller subtracts ``pull``
-    from the real coordinates."""
+    from the real coordinates.
+
+    ``take(table [B, ...]) -> [n, ...]`` and ``pool(z [n, ...]) -> [B, ...]``
+    (the f32 per-graph mean over real nodes) default to the whole batch's
+    :func:`per_graph_take` and ``graph_mean_pool``; the owner-sharded path
+    passes a take by ``graph_id`` and a pool summed over its shards (the
+    JAX ``virtual_and_node_update(..., take=, pool=)``)."""
     H, C = cfg.hidden, cfg.virtual_channels
     cd = cfg.compute_dtype
     n, B = h.shape[0], vx.shape[0]
 
-    def take(table):
-        return per_graph_take(table, n)
+    if take is None:
+        def take(table):
+            return per_graph_take(table, n)
 
-    def pool(z):
-        return graph_mean_pool(z.float(), graph_id, B, node_mask)
+    if pool is None:
+        def pool(z):
+            return graph_mean_pool(z.float(), graph_id, B, node_mask)
 
     vdiff = take(vx.float()) - x[:, None, :]                  # [n, C, 3]
     vrad = (vdiff * vdiff).sum(-1).sqrt()                      # [n, C]
@@ -224,10 +234,13 @@ def virtual_and_node_update(
     agg_e: torch.Tensor,        # [n, H] aggregated edge messages (mean)
     gravity: Optional[torch.Tensor] = None,   # [3]
     node_attr: Optional[torch.Tensor] = None,
+    take=None,
+    pool=None,
 ):
-    """FastEGNN's layer after edge aggregation; returns ``(h, x, vx, vh)``."""
+    """FastEGNN's layer after edge aggregation; returns ``(h, x, vx, vh)``.
+    ``take`` / ``pool``: :func:`virtual_block`'s."""
     cd = cfg.compute_dtype
-    vb = virtual_block(cfg, layer, h, x, vx, vh, graph_id, node_mask)
+    vb = virtual_block(cfg, layer, h, x, vx, vh, graph_id, node_mask, take=take, pool=pool)
     x_new = x + agg_x
     x_new = x_new - vb.pull
     x_new = x_new + node_gate(layer.coord_mlp_vel, h, cd) * v
@@ -245,18 +258,23 @@ def fits_fused(cfg: LayerCfg, edge_attr_dim: int) -> bool:
             and not cfg.normalize and not cfg.tanh and cfg.coords_agg == "mean")
 
 
-def real_edge_sums(layer, h, x, graph: GraphBatch, gate_mlp=None):
+def real_edge_sums(layer, h, x, graph: GraphBatch, gate_mlp=None, csr: bool = False):
     """``(m_sum [N, H], trans_sum [N, 3])``: the sums over each node's
     incoming real edges of the edge messages and coordinate translations of
     a layer with ``edge_mlp`` and the gate head ``gate_mlp`` (by default
     ``coord_mlp_r``: FastEGNN, FastRF; VNEGNN's A2A cell passes its
-    ``coord_mlp``).  The fused edge block where ``layer.fused``, else the
-    CSR branch: the edge ends gathered, :func:`edge_messages`, and one
-    segment-sum of ``[m_e | trans]`` (the translations rounded to the
-    compute dtype)."""
+    ``coord_mlp``).  The fused edge block where ``layer.fused`` and not
+    ``csr``, else the CSR branch: the edge ends gathered,
+    :func:`edge_messages`, and one segment-sum of ``[m_e | trans]`` (the
+    translations rounded to the compute dtype).
+
+    ``graph`` needs only ``rowptr``, ``src``, ``dst``, ``edge_attr``,
+    ``n_real_edges``, ``src_perm`` and ``src_rowptr``, over ``N`` = the
+    rows of ``h`` and ``x``: a batch, or an owner shard whose table holds
+    halo rows after its own (``parallel/owner_graph.py``)."""
     cfg = layer.cfg
     gate_mlp = layer.coord_mlp_r if gate_mlp is None else gate_mlp
-    if layer.fused:
+    if layer.fused and not csr:
         e0, e2, g0, g2 = layer.edge_mlp[0], layer.edge_mlp[2], gate_mlp[0], gate_mlp[2]
         return fused_edge_block(
             h, x, graph.rowptr, graph.src, graph.dst, graph.edge_attr,

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from fastegnn_tpu_torch.graph import GraphBatch
+from fastegnn_tpu_torch.parallel.mesh import mesh_group
 from fastegnn_tpu_torch.train.step import make_eval_step, make_train_step
 
 AXIS = "data"
@@ -63,13 +64,11 @@ def _on_axis(plain_step: Callable, mesh: DeviceMesh) -> Callable:
     return step
 
 
-def make_dp_train_step(model, optimizer: torch.optim.Optimizer, mesh: DeviceMesh,
-                       sigma: float = 1.5, weight: float = 0.01, sample: int = 3,
-                       per_graph_sampling: bool = False, use_mmd: bool = True) -> Callable:
-    """``step(graph, key=None, draw=None) -> {"loss", "mse", "mmd"}``, where
-    ``graph`` is this rank's sub-batch: ``train/step.py::make_train_step``
-    with one ``all_reduce`` of the flat gradient (its mean over the axis)
-    before each of ``optimizer``'s steps, then the metrics' mean.
+def reduce_gradients_before_step(model, optimizer: torch.optim.Optimizer, group,
+                                 mean: bool) -> None:
+    """Register on ``optimizer`` a pre-step hook that replaces each
+    gradient of ``model`` by its sum over ``group`` (``mean``: its mean),
+    with one ``all_reduce`` of a flat buffer.
 
     The flat buffer is made once, one slot per parameter in ``parameters()``
     order.  Only gradients that are not None go through it and come back: a
@@ -77,22 +76,36 @@ def make_dp_train_step(model, optimizer: torch.optim.Optimizer, mesh: DeviceMesh
     one-process step does.  Which parameters get a gradient depends on the
     model, not on the batch, so it is the same on every rank.
     """
-    group = mesh.get_group(AXIS)
     params = list(model.parameters())
     flat = torch.empty(sum(p.numel() for p in params), dtype=torch.float32,
                        device=params[0].device)
     slots = [s.view(p.shape) for s, p in zip(flat.split([p.numel() for p in params]), params)]
 
-    def mean_gradients(*_):
+    def reduce_gradients(*_):
         flat.zero_()
         have = [(p, s) for p, s in zip(params, slots) if p.grad is not None]
         for p, s in have:
             s.copy_(p.grad)
-        _mean_(flat, group)
+        if mean:
+            _mean_(flat, group)
+        else:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         for p, s in have:
             p.grad.copy_(s)
 
-    optimizer.register_step_pre_hook(mean_gradients)
+    optimizer.register_step_pre_hook(reduce_gradients)
+
+
+def make_dp_train_step(model, optimizer: torch.optim.Optimizer, mesh: DeviceMesh,
+                       sigma: float = 1.5, weight: float = 0.01, sample: int = 3,
+                       per_graph_sampling: bool = False, use_mmd: bool = True) -> Callable:
+    """``step(graph, key=None, draw=None) -> {"loss", "mse", "mmd"}``, where
+    ``graph`` is this rank's sub-batch: ``train/step.py::make_train_step``
+    with one ``all_reduce`` of the flat gradient (its mean over the axis,
+    :func:`reduce_gradients_before_step`) before each of ``optimizer``'s
+    steps, then the metrics' mean.
+    """
+    reduce_gradients_before_step(model, optimizer, mesh.get_group(AXIS), mean=True)
     return _on_axis(make_train_step(model, optimizer, sigma, weight, sample,
                                     per_graph_sampling, use_mmd), mesh)
 
@@ -107,11 +120,12 @@ def make_dp_eval_step(model, mesh: DeviceMesh, sigma: float = 1.5, weight: float
 
 
 def make_dp_agree(mesh: DeviceMesh) -> Callable:
-    """``agree(*values) -> list``: rank 0's floats on every rank of the axis
-    (one broadcast).  The training loop decides its best epoch and its early
-    stop on them, so that every rank decides alike, although each rank's
-    evaluation on the card sums with float atomics whose last bits differ."""
-    group = mesh.get_group(AXIS)
+    """``agree(*values) -> list``: rank 0's floats on every rank of the
+    mesh (one broadcast).  The training loop decides its best epoch and its
+    early stop on them, so that every rank decides alike, although each
+    rank's evaluation on the card sums with float atomics whose last bits
+    differ."""
+    group = mesh_group(mesh)
     src = dist.get_global_rank(group, 0)
 
     def agree(*values: float) -> List[float]:

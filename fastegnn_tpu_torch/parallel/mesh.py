@@ -105,6 +105,18 @@ def make_mesh(
     return init_device_mesh(device_type, tuple(sizes), mesh_dim_names=tuple(axis_names))
 
 
+def mesh_group(mesh: DeviceMesh):
+    """The process group of all of ``mesh``'s processes: its axis's group
+    for a mesh of one axis; else the default group, which a mesh of
+    :func:`make_mesh` spans."""
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} processes in a group of "
+                         f"{dist.get_world_size()}: a mesh spans every process")
+    return dist.group.WORLD
+
+
 def make_hybrid_mesh(
     dcn_axis: str = "data",
     ici_axes: Tuple[str, ...] = ("graph",),

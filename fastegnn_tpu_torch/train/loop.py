@@ -15,8 +15,9 @@ Beside the JAX log's keys, ``log_dict["telemetry"]`` keeps per epoch the
 wall seconds, the median train step ms (:class:`StepTimer`), the steps and,
 on a card, the peak device memory.
 
-Under data parallelism (``train_step_fn`` / ``batch_iter_fn`` /
-``agree_fn`` of ``parallel/data_parallel.py``) every rank runs this loop;
+Under data or graph parallelism (``train_step_fn`` / ``batch_iter_fn`` /
+``agree_fn`` of ``parallel/data_parallel.py``, and ``eval_step_fn`` /
+``eval_batch_iter_fn`` of ``parallel/owner_graph.py``) every rank runs this loop;
 the caller that owns the process group turns printing, the log, the
 checkpoints and the trace off on the ranks other than 0.
 """
@@ -58,9 +59,9 @@ def _run_epoch_train(train_step, batches, seed, epoch, timer):
     return _mean(losses), len(losses)
 
 
-def _run_epoch_eval(eval_step, dataset, batch_size, seed, epoch):
+def _run_epoch_eval(eval_step, batches, seed, epoch):
     losses = [eval_step(batch, step_key(seed, 1, epoch, i))["mse"]
-              for i, batch in enumerate(dataset.iter_batches(batch_size, rng=None))]
+              for i, batch in enumerate(batches)]
     return _mean(losses)
 
 
@@ -90,6 +91,7 @@ def train(
     train_step_fn=None,
     eval_step_fn=None,
     batch_iter_fn=None,
+    eval_batch_iter_fn=None,
     agree_fn=None,
     shuffle: bool = True,
 ):
@@ -108,13 +110,17 @@ def train(
     place of the default ones.  ``batch_iter_fn(dataset, batch_size,
     rng=...)``: the training batches in place of ``dataset.iter_batches``
     (this rank's sub-batches under data parallelism; evaluation stays on
-    whole batches).  ``agree_fn(loss_valid, loss_test)``: the two losses
+    whole batches).  ``eval_batch_iter_fn(dataset, batch_size)``: the
+    validation and test batches in place of ``dataset.iter_batches`` (this
+    rank's shards under graph parallelism, where ``eval_step_fn`` is the
+    owner-sharded eval step).  ``agree_fn(loss_valid, loss_test)``: the two losses
     that the best-epoch and early-stop decisions read (rank 0's on every
     rank under data parallelism).  ``profile_trace_dir``: trace the second
     epoch of this run with :func:`profile_trace`.
     """
     device = next(model.parameters()).device
     batch_iter_fn = batch_iter_fn or (lambda ds, bs, rng: ds.iter_batches(bs, rng=rng))
+    eval_batch_iter_fn = eval_batch_iter_fn or (lambda ds, bs: ds.iter_batches(bs, rng=None))
     train_step = train_step_fn or make_train_step(
         model, optimizer, sigma, weight, sample, per_graph_sampling, use_mmd)
     eval_step = eval_step_fn or make_eval_step(
@@ -162,9 +168,10 @@ def train(
             print(f"train epoch: {epoch}, avg loss: {loss_train:.5f}", flush=True)
 
         if epoch % test_interval == 0:
-            loss_valid = _run_epoch_eval(eval_step, dataset_valid, batch_size, seed, epoch)
-            loss_test = _run_epoch_eval(eval_step, dataset_test, batch_size, seed,
-                                        epoch + 10_000_000)
+            loss_valid = _run_epoch_eval(eval_step, eval_batch_iter_fn(dataset_valid, batch_size),
+                                         seed, epoch)
+            loss_test = _run_epoch_eval(eval_step, eval_batch_iter_fn(dataset_test, batch_size),
+                                        seed, epoch + 10_000_000)
             # every rank must take the best-epoch and early-stop decisions
             # below alike, or a rank that went on would wait in the next
             # step's all_reduce until the group's timeout; each rank's eval

@@ -85,7 +85,8 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
 @pytest.mark.parametrize("flags,match", [(["--model", "TFN", "--compute_dtype", "bfloat16"],
                                           "float32 only"),
                                          (["--mesh", "data=2"], "torchrun"),
-                                         (["--mesh", "graph=2"], "item 14"),
+                                         (["--mesh", "graph=2"],
+                                          "torchrun --standalone --nproc_per_node 2"),
                                          (["--model", "EGHN", "--mesh", "data=2"],
                                           "custom step"),
                                          (["--model", "MLP"], "not a graph batch"),

@@ -59,8 +59,8 @@ def test_parse_mesh_is_the_jax_parser(spec):
     ("data=2", "DimeNet", 2, "2", "cpu", "custom step"),
     ("data=2", "DimeNet++", 2, "2", "cpu", "custom step"),
     ("data=2", "EGHN", 2, "2", "cpu", "custom step"),
-    ("graph=2", "FastEGNN", 2, "2", "cpu", "item 14"),
-    ("data=2,graph=2", "FastEGNN", 4, "4", "cpu", "item 14"),
+    ("graph=2", "FastEGNN", 2, "2", "cpu", None),
+    ("data=2,graph=2", "FastEGNN", 4, "4", "cpu", None),
     ("data=2", "FastEGNN", 2, None, "cpu", "torchrun --standalone --nproc_per_node 2"),
     ("data=2", "FastEGNN", 2, "3", "cpu", "WORLD_SIZE is 3"),
     ("data=2", "FastEGNN", 2, "2", "cuda", "needs 2 devices, have 1"),
@@ -75,9 +75,10 @@ def test_mesh_checks_come_before_any_process_group(monkeypatch, mesh, model, bat
     if env is not None:
         monkeypatch.setenv("WORLD_SIZE", env)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    args = argparse.Namespace(mesh=mesh, model=model, batch_size=batch)
+    args = argparse.Namespace(mesh=mesh, model=model, batch_size=batch, attention_required=False,
+                              tanh_required=False, direction_vector_normalize_required=False)
     if match is None:
-        assert check_mesh(args, torch.device(device)) == parse_mesh(mesh)[0]
+        assert check_mesh(args, torch.device(device)) == parse_mesh(mesh)
     else:
         with pytest.raises(ValueError, match=match):
             check_mesh(args, torch.device(device))
