@@ -45,8 +45,12 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    defaults (f32, so the f32 edge kernels; batch 20; ``--virtual_channel 3
    --cutoff_rate 0.5``, and ``--radius 0.075`` for Water-3D's mean degree),
    3 epochs on the synthetic Water-3D trajectories (3 per split, 8000
-   particles, built in memory: a GPU machine need not have h5py), with
-   exact launch counts, per-epoch telemetry, and a resume from the best
+   particles, built in memory: a GPU machine need not have h5py), after
+   ``[collate]`` (``collate_phase``: one batch of the train split collated
+   on the host from the dataset's per-graph edge tables, the main path's
+   collate, and by the plain collate ``graph.batch_graphs_plain``, each
+   timed, the two batches equal field for field; the tables' build
+   seconds), with exact launch counts, per-epoch telemetry, and a resume from the best
    checkpoint that restores it tensor for tensor and trains one more epoch
    under the profiler (the epoch's busy share); then a profiler window over
    its train step, and the f32 edge kernels against their plain versions
@@ -55,7 +59,8 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    graph of the trained model, 4 forward launches per step; then the f32
    edge kernels against their plain versions on that graph;
 9. the N-body path: the port's generator writes ``100_0_0`` (100
-   trajectories per split, 4100 steps, a spawned worker per CPU); on the
+   trajectories per split, 4100 steps, a spawned worker per CPU) and
+   ``[collate]`` on its train split; on the
    first batch of its train split the data-parallel path ``[dp]``
    (``dp_phase``: two gloo ranks on the card, each on its half, against
    one process on the whole batch; a one-rank NCCL group's DP step against
@@ -89,6 +94,7 @@ Phases, in order; any failure raises and exits non-zero before the last line:
 10. the protein path: the same for the protein CLI (``run_protein.sh``:
    batch 50, sigma 1.0, weight 0.5, delta_frame 15, ``--cutoff_rate 0.5``)
    on a synthetic 856-atom chain of 270 frames (151 / 50 / 52 samples),
+   ``[collate]`` on its train split and on EGHN's (with the bonds' tables),
    for the five models (VNEGNN's virtual positions from the batch's
    Fibonacci spheres), EGNN and TFN; then EGHN (n_cluster 15, 3 layers per
    block, 4 pooling layers, a 2-layer decoder) on the CLI's datasets with
@@ -105,7 +111,8 @@ Phases 6 and 9-11 print their seconds.  Output: one JSON line
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
 f32 checks on ``[gp]``'s table as ``gp_table_f32``, and
 its f32 checks on the CLI batch, the rollout graph and the N-body and
-protein batches), the nvidia-smi line, and last ``{"ok": true, "device":
+protein batches; ``collate``, each ``[collate]``'s figures), the
+nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
 """
 
@@ -146,6 +153,7 @@ NB_PARTICLES, NB_TRAJ, NB_LENGTH = 100, 100, 4100
 # samples at delta_frame 15
 PROT_ATOMS, PROT_FRAMES, PROT_SIZES = 856, 270, [151, 50, 52]
 PATH_EPOCHS = 2
+COLLATE_RUNS = 3   # [collate]: the median over this many collates of one batch
 # the data-parallel path ([dp]): ranks on the one card, steps held against
 # one process, the parameters' tolerance there (measured on the H100 at
 # 700 W: 1.5e-8 where |g| >= 1e-6, 6.0e-7 over all), the ranks' time limit
@@ -761,6 +769,50 @@ def profile_window(step, g, tag: str, n_steps: int = 3):
     return busy / n_steps / 1e3, busy / wall_us
 
 
+def collate_phase(tag: str, dataset, batch_size: int) -> dict:
+    """[collate]: the first shuffled batch of ``dataset`` collated on the
+    host from the dataset's edge tables (its main path) and by the plain
+    collate (``graph.batch_graphs_plain``, batch-wide argsorts), each
+    COLLATE_RUNS times; the two batches must be equal in every field."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fastegnn_tpu_torch.graph import batch_graphs_plain
+
+    idx = dataset.batch_indices(batch_size, np.random.default_rng(0))[0]
+    graphs, spec = [dataset.graphs[i] for i in idx], dataset.batch_spec(len(idx))
+    new_s, plain_s = [], []
+    for _ in range(COLLATE_RUNS):
+        t0 = time.perf_counter()
+        got = dataset.host_collate(idx)
+        new_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = batch_graphs_plain(graphs, spec, device="cpu")
+        plain_s.append(time.perf_counter() - t0)
+    fields = [f.name for f in dataclasses.fields(got)
+              if isinstance(getattr(got, f.name), torch.Tensor)]
+    differ = [f for f in fields if not isinstance(getattr(want, f), torch.Tensor)
+              or getattr(want, f).dtype != getattr(got, f).dtype
+              or not torch.equal(getattr(want, f), getattr(got, f))]
+    check(not differ and got.n_real_edges == want.n_real_edges
+          and {f.name for f in dataclasses.fields(want)
+               if isinstance(getattr(want, f.name), torch.Tensor)} == set(fields),
+          f"{tag}: the batch from the edge tables differs from the plain collate in {differ}")
+    new_ms, plain_ms = (1e3 * statistics.median(v) for v in (new_s, plain_s))
+    out = dict(collate_ms=new_ms, plain_collate_ms=plain_ms, table_build_s=dataset.table_seconds,
+               graphs=len(dataset), batch=len(idx), real_edges=got.n_real_edges,
+               padded_edges=got.num_edges)
+    print(f"[collate] {tag}: batch {len(idx)} x {spec.max_nodes} nodes, {got.n_real_edges} real "
+          f"/ {got.num_edges} padded edges: from the edge tables {new_ms:.3f} ms, plain "
+          f"(batch-wide argsorts) {plain_ms:.3f} ms per batch (median of {COLLATE_RUNS}), "
+          f"{plain_ms / new_ms:.1f}x; the {len(dataset)} graphs' edge tables built in "
+          f"{dataset.table_seconds:.3f} s; the two batches equal in all {len(fields)} tensor "
+          f"fields", flush=True)
+    return out
+
+
 def cli_datasets():
     """The synthetic Water-3D splits of the CLI path, on the card."""
     import numpy as np
@@ -797,7 +849,8 @@ def cli_phase(tmp: str):
     """Phase 6: the Water-3D CLI's training run on the card, resumed from its
     best checkpoint for one more epoch under the profiler; then the f32
     edge kernels against their plain versions on one of its batches.
-    Returns ``(launches, kernel results, trained model, test dataset)``."""
+    Returns ``(launches, kernel results, trained model, test dataset,
+    collate figures)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -809,6 +862,7 @@ def cli_phase(tmp: str):
     args = cli_args(tmp)
     check(args.batch_size == 20 and args.dim_hidden == HIDDEN and args.num_layer == LAYERS
           and args.compute_dtype == "float32", "cli: the CLI's defaults changed")
+    collate = collate_phase("cli", dtr, args.batch_size)
     n_train = dtr.num_batches(args.batch_size)
     n_eval = dva.num_batches(args.batch_size) + dte.num_batches(args.batch_size)
     padded = -(-dtr.spec.max_edges * args.batch_size // 1024) * 1024
@@ -896,7 +950,7 @@ def cli_phase(tmp: str):
     del step
     torch.cuda.empty_cache()
     kern = kernel_phase(g, torch.Generator().manual_seed(4), modes=(False,), tag="cli")
-    return launches, kern, run.model, dte
+    return launches, kern, run.model, dte, collate
 
 
 def rollout_phase(model, dataset):
@@ -1564,7 +1618,8 @@ def gp_phase(tmp: str, g) -> dict:
 def nbody_phase(tmp: str):
     """Phase 8: the N-body CLI (``run_nbody.sh``'s configuration) on
     trajectories written by the port's generator with a worker per CPU,
-    once, then trained on by each model."""
+    once, then trained on by each model.  Returns ``(runs, [collate]
+    figures)``."""
     import torch
 
     from fastegnn_tpu_torch.cli import nbody
@@ -1597,6 +1652,7 @@ def nbody_phase(tmp: str):
     print(f"[nbody] datasets in {time.perf_counter() - t0:.2f} s: sizes {[len(d) for d in sets]}, "
           f"nodes {sets[0].spec.max_nodes}, edges per graph {sets[0].spec.max_edges}, real "
           f"edges per node {edges_per_node(sets)}", flush=True)
+    collate = collate_phase("nbody", sets[0], args.batch_size)
     t0 = time.perf_counter()
     dp = dp_phase(tmp, sets[0], args.batch_size)
     print(f"[dp] phase took {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1605,13 +1661,14 @@ def nbody_phase(tmp: str):
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
     runs["dp"] = dp
     runs[SE3] = se3_transformer_phase(f"nbody {SE3}", sets, args.batch_size)
-    return runs
+    return runs, collate
 
 
 def protein_phase(tmp: str):
     """Phase 9: the protein CLI (``run_protein.sh``'s configuration) on a
     synthetic chain of AdK's backbone size, trained on by each model; EGHN
-    on the CLI's datasets with the bond edges."""
+    on the CLI's datasets with the bond edges.  Returns ``(runs, [collate]
+    figures)``."""
     import torch
 
     from fastegnn_tpu_torch.cli import protein
@@ -1638,6 +1695,7 @@ def protein_phase(tmp: str):
           f"{PROT_FRAMES} frames, sizes {[len(d) for d in sets]}, edges per graph (max) "
           f"{[d.spec.max_edges for d in sets]}, real edges per node {edges_per_node(sets)}",
           flush=True)
+    collate = {"FastEGNN": collate_phase("protein", sets[0], args.batch_size)}
     fib = sets[0].collate([0, 1]).virtual_fibonacci
     check(fib is not None and tuple(fib.shape) == (2, 3, CHANNELS)
           and fib.device.type == "cuda",
@@ -1651,8 +1709,9 @@ def protein_phase(tmp: str):
           "protein: EGHN's datasets have no bonds")
     print(f"[protein] EGHN's datasets with the bond edges in {time.perf_counter() - t0:.2f} s: "
           f"{bond_sets[0].spec.max_local_edges} bonds per graph", flush=True)
+    collate["EGHN"] = collate_phase("protein EGHN", bond_sets[0], bond_args.batch_size)
     runs["EGHN"] = training_cli_phase("protein EGHN", bond_args, bond_sets)
-    return runs
+    return runs, collate
 
 
 def equivariance_phase():
@@ -1740,14 +1799,14 @@ def main() -> int:
     phase_s["gp"] = time.perf_counter() - t0
     print(f"[gp] phase took {phase_s['gp']:.2f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        cli_launches, cli_kern, trained, test_set = cli_phase(tmp)
+        cli_launches, cli_kern, trained, test_set, cli_collate = cli_phase(tmp)
     roll_kern = rollout_phase(trained, test_set)
     del trained, test_set
-    paths = {}
+    paths, collate = {}, {"cli": cli_collate}
     for name, phase in (("nbody", nbody_phase), ("protein", protein_phase)):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            paths[name] = phase(tmp)
+            paths[name], collate[name] = phase(tmp)
         phase_s[name] = time.perf_counter() - t0
         print(f"[{name}] phase took {phase_s[name]:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -1795,7 +1854,8 @@ def main() -> int:
                       "variant_M_edge_messages_per_s": var_rate, "gp": gp["numbers"],
                       **{p: {m: run[2] for m, run in paths[p].items()}
                          for p in ("nbody", "protein")},
-                      "equivariance_max_abs_err": eq_errors, "phase_s": phase_s}),
+                      "equivariance_max_abs_err": eq_errors, "collate": collate,
+                      "phase_s": phase_s}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ A dataset is a list of *pre-padded* single-graph dicts
 (:func:`fastegnn_tpu_torch.graph.pad_graph`) plus a per-graph
 :class:`GraphSpec`; a batch stacks ``batch_size`` of them into one
 :class:`GraphBatch` on the dataset's device.  Batch shapes depend only on
-``(spec, batch_size)``.
+``(spec, batch_size)``.  The dataset builds each graph's edge table
+(:func:`fastegnn_tpu_torch.graph.edge_table`) once, so that a batch is
+collated without sorting its edges.
 
 A batch is collated on the host into CPU tensors and moved to the device by
 the thread that consumes it, with a non-blocking copy, so that the
@@ -25,7 +27,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from fastegnn_tpu_torch import resolve_device
-from fastegnn_tpu_torch.graph import GraphBatch, GraphSpec, batch_graphs
+from fastegnn_tpu_torch.graph import EdgeTable, GraphBatch, GraphSpec, batch_graphs, edge_table
 
 
 class GraphDataset:
@@ -38,6 +40,10 @@ class GraphDataset:
         self.graphs: List[dict] = list(graphs)
         self.spec = spec
         self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        self.tables: List[EdgeTable] = [edge_table(g, spec) for g in self.graphs]
+        # host seconds of the edge tables' build
+        self.table_seconds = time.perf_counter() - t0
         self._collate_cache: Optional[dict] = None
         # host seconds of each collate, appended by whichever thread ran it
         self.collate_seconds: List[float] = []
@@ -58,14 +64,19 @@ class GraphDataset:
             return None
         return self._collate_cache.get(tuple(int(i) for i in indices))
 
+    def host_collate(self, indices: Sequence[int]) -> GraphBatch:
+        """The batch of ``indices`` as CPU tensors, from the graphs' edge
+        tables."""
+        return batch_graphs([self.graphs[i] for i in indices], self.batch_spec(len(indices)),
+                            device="cpu", tables=[self.tables[i] for i in indices])
+
     def _host_batch(self, indices) -> Optional[GraphBatch]:
         """The batch as CPU tensors, page-locked when the device is a card;
         None when the cache already holds it.  Runs in the prefetch thread."""
         if self._cached(indices) is not None:
             return None
         t0 = time.perf_counter()
-        out = batch_graphs([self.graphs[i] for i in indices],
-                           self.batch_spec(len(indices)), device="cpu")
+        out = self.host_collate(indices)
         if self.device.type == "cuda":
             out = out.pin_memory()
         self.collate_seconds.append(time.perf_counter() - t0)

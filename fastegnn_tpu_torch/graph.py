@@ -10,7 +10,11 @@ same batch from the same raw graphs:
 - Padded edges have ``dst == total_nodes`` (an out-of-range sentinel),
   ``src == 0`` and ``edge_mask == False``.
 - Edges are sorted by ``dst`` (stable), so padded edges come last, and the
-  edge capacity is aligned to ``edge_align``.
+  edge capacity is aligned to ``edge_align``.  A batch composes this
+  order, and its CSR tables below, from each graph's :class:`EdgeTable`,
+  built once per graph (:func:`edge_table`, by counting sorts in
+  ``native``), so that collating a batch sorts nothing;
+  :func:`batch_graphs_plain` builds the same batch by sorting it whole.
 - ``dst_count[n]`` is the real in-degree of node ``n``; ``loc_mean`` the
   per-graph mean position repeated over the virtual channels.
 
@@ -46,6 +50,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from fastegnn_tpu_torch import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,12 +250,73 @@ def pad_graph(
     return out
 
 
-def _csr_through(ids: np.ndarray, mask: np.ndarray, n: int):
-    """``(perm, rowptr)``: the stable argsort of the masked-in ``ids`` (as
-    indices into ``ids``) and the row pointer [n + 1] of that order."""
-    real = np.flatnonzero(mask)
-    perm = real[np.argsort(ids[real], kind="stable")]
-    return perm, np.searchsorted(ids[perm], np.arange(n + 1), side="left")
+@dataclasses.dataclass(frozen=True)
+class EdgeTable:
+    """One padded graph's edge order and CSR tables (:func:`edge_table`),
+    built once per graph so that :func:`batch_graphs` composes a batch's
+    tables without sorting its edges.
+
+    ``order`` lists the graph's real edges in stable ``dst`` order, then
+    its padded edges in their own order; ``rowptr`` is the row pointer of
+    the ordered real edges over ``max_nodes + 1`` rows, ``src_perm`` the
+    stable argsort of their ``src`` and ``src_rowptr`` its row pointer.  A
+    graph with bond edges also carries their stable argsorts by dst and by
+    src (indices into its bond slots) with their row pointers.
+    """
+
+    order: np.ndarray                                 # [E] int32
+    n_real: int
+    rowptr: np.ndarray                                # [max_nodes + 1] int32
+    src_perm: np.ndarray                              # [n_real] int32
+    src_rowptr: np.ndarray                            # [max_nodes + 1] int32
+    local_perm: Optional[np.ndarray] = None           # [El_real] int32
+    local_rowptr: Optional[np.ndarray] = None         # [max_nodes + 1] int32
+    local_src_perm: Optional[np.ndarray] = None       # [El_real] int32
+    local_src_rowptr: Optional[np.ndarray] = None     # [max_nodes + 1] int32
+
+
+def _csr(keys: np.ndarray, n: int, what: str):
+    """``(perm, rowptr)``: the stable argsort of ``keys`` (node ids, which
+    must lie in ``[0, n)``) and the row pointer [n + 1] of that order."""
+    if keys.size and not (0 <= keys.min() and keys.max() < n):
+        raise ValueError(f"{what} ids must lie in [0, {n})")
+    rowptr = np.zeros(n + 1, np.int32)
+    rowptr[1:] = np.cumsum(native.bincount_f32(keys, n), dtype=np.int64)
+    return native.counting_argsort(keys, n), rowptr
+
+
+def edge_table(graph: dict, spec: GraphSpec) -> EdgeTable:
+    """The :class:`EdgeTable` of one padded graph (:func:`pad_graph`) under
+    ``spec``'s ``max_nodes``: two counting sorts over its real edges, and
+    two over its bonds where it has them."""
+    n = spec.max_nodes
+    mask = np.asarray(graph["edge_mask"], bool)
+    real = np.flatnonzero(mask).astype(np.int32)
+    perm, rowptr = _csr(np.asarray(graph["dst"])[real], n, "dst")
+    ordered = real[perm]
+    src_perm, src_rowptr = _csr(np.asarray(graph["src"])[ordered], n, "src")
+    local = {}
+    if "local_dst" in graph:
+        lreal = np.flatnonzero(graph["local_edge_mask"]).astype(np.int32)
+        for name, key in (("local", "local_dst"), ("local_src", "local_src")):
+            lperm, lrowptr = _csr(np.asarray(graph[key])[lreal], n, key)
+            local[f"{name}_perm"], local[f"{name}_rowptr"] = lreal[lperm], lrowptr
+    return EdgeTable(order=np.concatenate([ordered, np.flatnonzero(~mask).astype(np.int32)]),
+                     n_real=int(real.size), rowptr=rowptr, src_perm=src_perm,
+                     src_rowptr=src_rowptr, **local)
+
+
+def _check_count(graphs: Sequence[dict], spec: GraphSpec) -> None:
+    if len(graphs) != spec.n_graphs:
+        raise ValueError(f"got {len(graphs)} graphs for spec with n_graphs={spec.n_graphs}")
+
+
+def _local_ids(graphs: Sequence[dict], max_nodes: int):
+    """The batch's bond ``(dst, src)``, offset per graph slot like the main
+    edges; masked slots point at node 0."""
+    return (np.concatenate([
+        np.where(g["local_edge_mask"], g[k] + i * max_nodes, 0)
+        for i, g in enumerate(graphs)]).astype(np.int32) for k in ("local_dst", "local_src"))
 
 
 def batch_graphs(
@@ -258,58 +325,130 @@ def batch_graphs(
     *,
     edge_align: int = 1024,
     device=None,
+    tables: Optional[Sequence[EdgeTable]] = None,
 ) -> GraphBatch:
     """Concatenate padded single graphs into one ``GraphBatch`` on ``device``.
 
-    Node ids of graph ``g`` are offset by ``g * spec.max_nodes``; edges are
-    sorted by ``dst`` with a stable sort (padded edges last), then padded
-    with sentinel edges up to a multiple of ``edge_align``.
+    Node ids of graph ``g`` are offset by ``g * spec.max_nodes``, so the
+    batch's stable sort by ``dst`` is each graph's real edges in their own
+    stable dst order, graph after graph, then the padded edges: the batch
+    gathers each graph's edges through its :class:`EdgeTable` (``tables``,
+    one per graph; built here when not given) and offsets its tables,
+    without sorting.  The edges are then padded with sentinel edges up to
+    a multiple of ``edge_align``.
     """
     from fastegnn_tpu_torch import resolve_device
 
     dev = resolve_device(device)
+    _check_count(graphs, spec)
+    if tables is None:
+        tables = [edge_table(g, spec) for g in graphs]
+    mn = spec.max_nodes
+    if len(tables) != len(graphs) or any(tb.rowptr.size != mn + 1 for tb in tables):
+        raise ValueError(f"need one edge table over {mn} nodes per graph")
+    total_nodes = len(graphs) * mn
+    n_real = sum(tb.n_real for tb in tables)
+    n_edges = sum(tb.order.size for tb in tables)
+    cap = n_edges + -n_edges % edge_align
+    dst = np.full(cap, total_nodes, np.int32)
+    src = np.zeros(cap, np.int32)
+    edge_attr = np.zeros((cap, graphs[0]["edge_attr"].shape[1]),
+                         np.result_type(*(g["edge_attr"] for g in graphs)))
+    edge_mask = np.zeros(cap, bool)
+    edge_mask[:n_real] = True
+    rowptr, src_rowptr = (np.empty(total_nodes + 1, np.int32) for _ in range(2))
+    rowptr[-1] = src_rowptr[-1] = n_real
+    src_perm = np.empty(n_real, np.int32)
+    lo, pad = 0, n_real
+    for i, (g, tb) in enumerate(zip(graphs, tables)):
+        hi, real, rest = lo + tb.n_real, tb.order[:tb.n_real], tb.order[tb.n_real:]
+        np.add(np.take(g["dst"], real), i * mn, out=dst[lo:hi], casting="unsafe")
+        np.add(np.take(g["src"], real), i * mn, out=src[lo:hi], casting="unsafe")
+        edge_attr[lo:hi] = np.take(g["edge_attr"], real, axis=0)
+        edge_attr[pad:pad + rest.size] = np.take(g["edge_attr"], rest, axis=0)
+        np.add(tb.rowptr[:-1], lo, out=rowptr[i * mn:(i + 1) * mn])
+        np.add(tb.src_rowptr[:-1], lo, out=src_rowptr[i * mn:(i + 1) * mn])
+        np.add(tb.src_perm, lo, out=src_perm[lo:hi])
+        lo, pad = hi, pad + rest.size
+
+    local = None
+    if all("local_dst" in g for g in graphs):
+        local, slot = {}, np.cumsum([0] + [g["local_dst"].shape[0] for g in graphs])
+        for name in ("local", "local_src"):
+            perms = [getattr(tb, f"{name}_perm") for tb in tables]
+            base = np.cumsum([0] + [p.size for p in perms])
+            local[f"{name}_perm"] = np.concatenate(
+                [p + slot[i] for i, p in enumerate(perms)]).astype(np.int32)
+            local[f"{name}_rowptr"] = np.append(np.concatenate(
+                [getattr(tb, f"{name}_rowptr")[:-1] + base[i] for i, tb in enumerate(tables)]),
+                base[-1]).astype(np.int32)
+    return _assemble(graphs, spec, dev, local, dst=dst, src=src, edge_attr=edge_attr,
+                     edge_mask=edge_mask, rowptr=rowptr, src_perm=src_perm,
+                     src_rowptr=src_rowptr, dst_count=np.diff(rowptr).astype(np.float32))
+
+
+def _csr_through(ids: np.ndarray, mask: np.ndarray, n: int):
+    """``(perm, rowptr)``: the stable argsort of the masked-in ``ids`` (as
+    indices into ``ids``) and the row pointer [n + 1] of that order."""
+    real = np.flatnonzero(mask)
+    perm = real[np.argsort(ids[real], kind="stable")]
+    return perm, np.searchsorted(ids[perm], np.arange(n + 1), side="left")
+
+
+def batch_graphs_plain(graphs: Sequence[dict], spec: GraphSpec, *, edge_align: int = 1024,
+                       device=None) -> GraphBatch:
+    """:func:`batch_graphs` by sorting the whole batch: stable argsorts of
+    its edges by dst and by src, and of its bonds.  Its plain version, for
+    the tests and the smoke run; the main path never calls it."""
+    from fastegnn_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    _check_count(graphs, spec)
+    mn, total_nodes = spec.max_nodes, len(graphs) * spec.max_nodes
+    dst = np.concatenate([np.where(g["edge_mask"], g["dst"] + i * mn, total_nodes)
+                          for i, g in enumerate(graphs)]).astype(np.int32)
+    src = np.concatenate([np.where(g["edge_mask"], g["src"] + i * mn, 0)
+                          for i, g in enumerate(graphs)]).astype(np.int32)
+    order = np.argsort(dst, kind="stable")
+    edges = [a[order] for a in (dst, src, *(np.concatenate([g[k] for g in graphs])
+                                            for k in ("edge_attr", "edge_mask")))]
+    extra = -dst.shape[0] % edge_align
+    dst, src, edge_attr, edge_mask = (np.concatenate([a, np.full((extra, *a.shape[1:]), fill,
+                                                                 a.dtype)])
+                                      for a, fill in zip(edges, (total_nodes, 0, 0, False)))
+    rowptr = np.searchsorted(dst, np.arange(total_nodes + 1), side="left")
+    n_real = int(rowptr[-1])
+    src_perm, src_rowptr = _csr_through(src, np.arange(src.size) < n_real, total_nodes)
+    local = None
+    if all("local_dst" in g for g in graphs):
+        lmask = np.concatenate([g["local_edge_mask"] for g in graphs])
+        (dperm, drowptr), (sperm, srowptr) = (_csr_through(ids, lmask, total_nodes)
+                                              for ids in _local_ids(graphs, mn))
+        local = dict(local_perm=dperm, local_rowptr=drowptr, local_src_perm=sperm,
+                     local_src_rowptr=srowptr)
+    i32 = lambda a: a.astype(np.int32)  # noqa: E731
+    return _assemble(graphs, spec, dev, local and {k: i32(a) for k, a in local.items()},
+                     dst=dst, src=src, edge_attr=edge_attr, edge_mask=edge_mask,
+                     rowptr=i32(rowptr), src_perm=i32(src_perm), src_rowptr=i32(src_rowptr),
+                     dst_count=np.bincount(dst[edge_mask], minlength=total_nodes + 1)[
+                         :total_nodes].astype(np.float32))
+
+
+def _assemble(graphs: Sequence[dict], spec: GraphSpec, dev, local: Optional[dict],
+              **edges: np.ndarray) -> GraphBatch:
+    """The ``GraphBatch`` on ``dev`` of the batch's edge arrays ``edges``
+    and bond tables ``local`` (numpy), with the graphs' node fields."""
     b = len(graphs)
-    if b != spec.n_graphs:
-        raise ValueError(f"got {b} graphs for spec with n_graphs={spec.n_graphs}")
 
     def cat(key):
         return np.concatenate([g[key] for g in graphs], axis=0)
 
-    total_nodes = b * spec.max_nodes
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
     graph_id = np.concatenate([
         np.where(g["node_mask"], np.int32(i), np.int32(b))
         for i, g in enumerate(graphs)]).astype(np.int32)
-    dst = np.concatenate([
-        np.where(g["edge_mask"], g["dst"] + i * spec.max_nodes, total_nodes)
-        for i, g in enumerate(graphs)]).astype(np.int32)
-    src = np.concatenate([
-        np.where(g["edge_mask"], g["src"] + i * spec.max_nodes, 0)
-        for i, g in enumerate(graphs)]).astype(np.int32)
-    edge_attr, edge_mask = cat("edge_attr"), cat("edge_mask")
-
-    # stable sort by dst (ids lie in [0, total_nodes]; the sentinel sorts last)
-    order = np.argsort(dst, kind="stable")
-    dst, src = dst[order], src[order]
-    edge_attr, edge_mask = edge_attr[order], edge_mask[order]
-
-    extra = -dst.shape[0] % edge_align
-    if extra:
-        dst = np.concatenate([dst, np.full(extra, total_nodes, np.int32)])
-        src = np.concatenate([src, np.zeros(extra, np.int32)])
-        edge_attr = np.concatenate(
-            [edge_attr, np.zeros((extra, edge_attr.shape[1]), edge_attr.dtype)])
-        edge_mask = np.concatenate([edge_mask, np.zeros(extra, bool)])
-
-    real = dst[edge_mask]
-    dst_count = np.bincount(real, minlength=total_nodes + 1)[:total_nodes]
-    rowptr = np.searchsorted(dst, np.arange(total_nodes + 1), side="left")
-    n_real = int(rowptr[-1])
-    if not (edge_mask[:n_real].all() and not edge_mask[n_real:].any()):
-        raise ValueError("real edges must precede the padded edges after sorting")
-    src_perm = np.argsort(src[:n_real], kind="stable")
-    src_rowptr = np.searchsorted(src[:n_real][src_perm], np.arange(total_nodes + 1),
-                                 side="left")
-
     c = spec.virtual_channels
     means = []
     for g in graphs:
@@ -320,31 +459,20 @@ def batch_graphs(
 
     node_attr = None
     if all("node_attr" in g for g in graphs):
-        node_attr = torch.as_tensor(cat("node_attr"), device=dev)
+        node_attr = t(cat("node_attr"))
     # the protein dataset's graphs carry fibonacci-sphere virtual positions
     # [1, 3, C] (the JAX package attaches them in ProteinDataset.collate)
     fib = None
     if all("virtual_fibonacci" in g for g in graphs):
-        fib = torch.as_tensor(cat("virtual_fibonacci"), device=dev)
+        fib = t(cat("virtual_fibonacci"))
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
-
-    local = {}
-    if all("local_dst" in g for g in graphs):
-        # offset per graph slot like the main edges; masked slots point at
-        # node 0 and are left out of the perms
-        lmask = cat("local_edge_mask")
-        ldst, lsrc = (np.concatenate([
-            np.where(g["local_edge_mask"], g[k] + i * spec.max_nodes, 0)
-            for i, g in enumerate(graphs)]).astype(np.int32) for k in ("local_dst", "local_src"))
-        dperm, drowptr = _csr_through(ldst, lmask, total_nodes)
-        sperm, srowptr = _csr_through(lsrc, lmask, total_nodes)
-        local = dict(local_dst=t(ldst), local_src=t(lsrc),
-                     local_edge_attr=t(cat("local_edge_attr")), local_edge_mask=t(lmask),
-                     **{k: t(a.astype(np.int32)) for k, a in (
-                         ("local_perm", dperm), ("local_rowptr", drowptr),
-                         ("local_src_perm", sperm), ("local_src_rowptr", srowptr))})
+    bonds = {}
+    if local is not None:
+        ldst, lsrc = _local_ids(graphs, spec.max_nodes)
+        bonds = dict(local_dst=t(ldst), local_src=t(lsrc),
+                     local_edge_attr=t(cat("local_edge_attr")),
+                     local_edge_mask=t(cat("local_edge_mask")),
+                     **{k: t(a) for k, a in local.items()})
 
     return GraphBatch(
         node_feat=t(cat("node_feat")),
@@ -352,21 +480,14 @@ def batch_graphs(
         vel=t(cat("vel")),
         node_mask=t(cat("node_mask")),
         graph_id=t(graph_id, torch.int64),
-        dst=t(dst),
-        src=t(src),
-        edge_attr=t(edge_attr),
-        edge_mask=t(edge_mask),
         coord_target=t(cat("coord_target")),
         loc_mean=t(loc_mean),
-        dst_count=t(dst_count.astype(np.float32)),
-        rowptr=t(rowptr.astype(np.int32)),
-        src_perm=t(src_perm.astype(np.int32)),
-        src_rowptr=t(src_rowptr.astype(np.int32)),
+        **{k: t(a) for k, a in edges.items()},
         n_graphs=b,
-        n_real_edges=n_real,
+        n_real_edges=int(edges["rowptr"][-1]),
         node_attr=node_attr,
         virtual_fibonacci=fib,
-        **local,
+        **bonds,
     )
 
 

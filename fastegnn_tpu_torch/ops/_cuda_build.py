@@ -1,11 +1,14 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``_build/<name>-<hash of the source>.so`` (``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``).  The build
-runs on first use, from the sources in the checkout; a library whose source
-hash matches is reused.  All missing libraries compile in parallel, one
-``nvcc`` per source.  Nothing here runs at import time.
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``).  The host
+library ``native/graphcore.cpp`` builds the same way with ``g++ -O3 -shared
+-fPIC -std=c++17`` into ``_build/graphcore-<hash>.so``.  The build runs on
+first use, from the sources in the checkout; a library whose source hash
+matches is reused.  All missing libraries compile in parallel, one compiler
+per source, each into a temporary name moved into place, so that processes
+building at once do not clash.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -24,8 +28,11 @@ CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 SOURCES = ("edge_block", "segment_sum")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+HOST_SOURCES = {"graphcore": PKG_ROOT / "native" / "graphcore.cpp"}
+GXX = "g++"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -39,43 +46,58 @@ def nvcc_path() -> str:
     return found
 
 
+def gxx_path() -> str:
+    found = shutil.which(GXX)
+    if found is None:
+        raise RuntimeError(f"{GXX} not found; the host library cannot be built")
+    return found
+
+
+def source_path(name: str) -> Path:
+    return HOST_SOURCES.get(name, CSRC / f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
+    return [gxx_path(), "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(out), str(src)]
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every library in ``names`` that is missing, all in parallel.
 
-    Returns ``{name: ptxas report}`` for the sources compiled by this call
-    (register and shared-memory use per kernel).  Raises with nvcc's output
-    when a build fails.
+    Returns ``{name: compiler report}`` for the sources compiled by this
+    call (for a CUDA source, ptxas's register and shared-memory use per
+    kernel).  Raises with the compiler's output when a build fails.
     """
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{text}")
+            failed.append(f"--- {source_path(name).name} (exit {proc.returncode})\n{text}")
             continue
         os.replace(tmp, out)
         reports[name] = text
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
     return reports
 
 
@@ -106,9 +128,10 @@ def _unmangled(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if it is missing."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib

@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from fastegnn_tpu_torch.graph import GraphBatch, batch_graphs
+from fastegnn_tpu_torch.graph import GraphBatch
 from fastegnn_tpu_torch.models.fastegnn_core import real_edge_sums, virtual_and_node_update
 from fastegnn_tpu_torch.ops.segment import segment_count, segment_sum
 from fastegnn_tpu_torch.parallel.data_parallel import rank_key, reduce_gradients_before_step
@@ -253,9 +253,7 @@ def iter_owner_sharded_batches(dataset, batch_size: int, mesh: DeviceMesh,
     per = batch_size // data
     for idx in dataset.batch_indices(batch_size, rng):
         sub = idx[r * per:(r + 1) * per]
-        host = batch_graphs([dataset.graphs[i] for i in sub], dataset.batch_spec(per),
-                            device="cpu")
-        yield factory(host, shard, dataset.device)
+        yield factory(dataset.host_collate(sub), shard, dataset.device)
 
 
 def halo_pair_rows(batch: GraphBatch, n_shards: int) -> int:

@@ -5,7 +5,8 @@ Per step the model maps ``(x_k, v_k) -> x_{k+1}`` (the reference's
 delta-frame prediction).  The edge set is frozen at the initial frame,
 which is right for fixed-connectivity systems and an approximation for
 flowing ones (Water-3D); :func:`rollout_rebuild` rebuilds the radius graph
-from the host every ``rebuild_every`` steps.
+on the host (the C++ cell list of ``native``) every ``rebuild_every``
+steps.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from fastegnn_tpu_torch import native
 from fastegnn_tpu_torch.graph import GraphBatch, batch_graphs, pad_graph
-from fastegnn_tpu_torch.ops.neighbors import radius_graph_np
 from fastegnn_tpu_torch.train.step import prediction
 
 
@@ -52,7 +53,8 @@ def make_rollout(model: torch.nn.Module, n_steps: int, vel_mode: str = "differen
 def rollout_rebuild(model: torch.nn.Module, graphs, spec, n_steps: int, rebuild_every: int,
                     radius: float, vel_mode: str = "difference") -> np.ndarray:
     """Long-horizon rollout of one padded graph with the radius graph rebuilt
-    on the host (scipy) from the last predicted frame every
+    on the host (``native.radius_graph``, pairs with ``0 < d^2 < r^2`` in
+    f32, as the JAX package rebuilds it) from the last predicted frame every
     ``rebuild_every`` steps; returns the frames ``[n_steps, N, 3]``."""
     if spec.n_graphs != 1 or len(graphs) != 1:
         raise ValueError("rollout_rebuild takes one graph")
@@ -64,7 +66,7 @@ def rollout_rebuild(model: torch.nn.Module, graphs, spec, n_steps: int, rebuild_
     done = 0
     while done < n_steps:
         coord = g["coord"][:n]
-        dst, src = radius_graph_np(coord, radius)
+        dst, src = native.radius_graph(coord, radius)
         gp = pad_graph(spec, node_feat=g["node_feat"][:n], coord=coord, vel=g["vel"][:n],
                        dst=dst, src=src,
                        edge_attr=np.zeros((dst.shape[0], spec.edge_attr_dim), np.float32),

@@ -410,6 +410,7 @@ def test_the_new_cli_modules_import_without_jax():
             "import fastegnn_tpu_torch.models.tfn, fastegnn_tpu_torch.models.vnegnn\n"
             "import fastegnn_tpu_torch.models.basic, fastegnn_tpu_torch.models.eghn\n"
             "import fastegnn_tpu_torch.models.gvp, fastegnn_tpu_torch.models.dimenet\n"
+            "import fastegnn_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fastegnn_tpu.'))"
             " or m == 'fastegnn_tpu']\n"
             "assert not bad, bad\n"

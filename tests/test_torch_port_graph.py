@@ -134,3 +134,124 @@ def test_segment_ops_match_jax():
         np.asarray(jseg.graph_mean_pool(jnp.asarray(data), jnp.asarray(gid), 3,
                                         jnp.asarray(mask))),
         rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# batches composed from per-graph edge tables
+# ---------------------------------------------------------------------------
+
+_TABLE_FIELDS = ("rowptr", "src_perm", "src_rowptr", "local_dst", "local_src",
+                 "local_edge_attr", "local_edge_mask", "local_perm", "local_rowptr",
+                 "local_src_perm", "local_src_rowptr")
+
+
+def _table_raws(kind):
+    """Raw graphs: random ones; with bond edges (a chain and a few random
+    bonds); with a graph of no real edge; or with a graph whose last rows
+    have no in-edge."""
+    rng = np.random.default_rng(7)
+    raws = [random_raw_graph(rng, n, cutoff_rate=0.3) for n in (9, 12, 7)]
+    if kind == "bonds":
+        for r in raws:
+            n = r["coord"].shape[0]
+            extra = rng.integers(0, n, (2, 3))
+            r["local_dst"] = np.concatenate([np.arange(n - 1), extra[0]]).astype(np.int32)
+            r["local_src"] = np.concatenate([np.arange(1, n), extra[1]]).astype(np.int32)
+            r["local_edge_attr"] = rng.random((n + 2, 2)).astype(np.float32)
+    elif kind == "no edges":
+        r = raws[1]
+        r["dst"], r["src"] = r["dst"][:0], r["src"][:0]
+        r["edge_attr"] = r["edge_attr"][:0]
+    elif kind == "empty last rows":
+        r = raws[0]
+        keep = r["dst"] < r["coord"].shape[0] - 3
+        r["dst"], r["src"], r["edge_attr"] = r["dst"][keep], r["src"][keep], r["edge_attr"][keep]
+    return raws
+
+
+def _table_batches(raws, pad_nodes, pad_edges, spatial_sort=False, edge_align=1024):
+    """The JAX batch, the port's batch from a dataset's edge tables and the
+    port's plain (sorting) batch of the same raw graphs."""
+    from fastegnn_tpu_torch.data.batcher import GraphDataset
+
+    n = max(r["coord"].shape[0] for r in raws)
+    e = max(r["dst"].shape[0] for r in raws)
+    bonds = max(r["local_dst"].shape[0] for r in raws) if "local_dst" in raws[0] else 0
+    kw = dict(max_nodes=n + pad_nodes, max_edges=e + pad_edges, edge_attr_dim=2,
+              virtual_channels=3, max_local_edges=bonds)
+    js = jgraph.GraphSpec(n_graphs=len(raws), **kw)
+    jb = jgraph.batch_graphs([jgraph.pad_graph(js, **r, spatial_sort=spatial_sort) for r in raws],
+                             js, edge_align=edge_align)
+    ps = pgraph.GraphSpec(n_graphs=1, **kw)
+    padded = [pgraph.pad_graph(ps, **r, spatial_sort=spatial_sort) for r in raws]
+    ds = GraphDataset(padded, ps, device="cpu")
+    pb = pgraph.batch_graphs(padded, ds.batch_spec(len(raws)), edge_align=edge_align,
+                             device="cpu", tables=ds.tables)
+    plain = pgraph.batch_graphs_plain(padded, ds.batch_spec(len(raws)), edge_align=edge_align,
+                                      device="cpu")
+    return jb, pb, plain, ds
+
+
+_TABLE_CASES = [("random", 0, 0, False, 1024), ("random", 5, 9, False, 1024),
+                ("random", 3, 7, True, 1024), ("random", 2, 0, False, 1),
+                ("bonds", 2, 3, True, 1024), ("no edges", 1, 4, False, 1024),
+                ("empty last rows", 4, 2, False, 1)]
+
+
+@pytest.mark.parametrize("kind,pad_nodes,pad_edges,spatial_sort,edge_align", _TABLE_CASES)
+def test_batch_from_dataset_tables_matches_jax_exactly(kind, pad_nodes, pad_edges, spatial_sort,
+                                                        edge_align):
+    jb, pb, _, ds = _table_batches(_table_raws(kind), pad_nodes, pad_edges, spatial_sort,
+                                   edge_align)
+    fields = _FIELDS + (("local_dst", "local_src", "local_edge_attr", "local_edge_mask")
+                        if kind == "bonds" else ())
+    for f in fields:
+        a, b = np.asarray(getattr(jb, f)), getattr(pb, f).numpy()
+        assert a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=f)
+    if edge_align == 1024:   # the dataset's collate (its edge_align) is the same batch
+        got = ds.collate(list(range(len(ds))))
+        for f in fields + _TABLE_FIELDS:
+            if getattr(pb, f) is not None:
+                assert torch.equal(getattr(got, f), getattr(pb, f)), f
+    if kind == "no edges":
+        assert int(pb.rowptr[2 * ds.spec.max_nodes]) == int(pb.rowptr[ds.spec.max_nodes])
+
+
+@pytest.mark.parametrize("kind,pad_nodes,pad_edges,spatial_sort,edge_align", _TABLE_CASES)
+def test_plain_collate_equals_batch_graphs(kind, pad_nodes, pad_edges, spatial_sort, edge_align):
+    _, pb, plain, _ = _table_batches(_table_raws(kind), pad_nodes, pad_edges, spatial_sort,
+                                     edge_align)
+    for f in _FIELDS + _TABLE_FIELDS:
+        a, b = getattr(plain, f), getattr(pb, f)
+        assert (a is None) == (b is None) == (f.startswith("local") and kind != "bonds"), f
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert plain.n_real_edges == pb.n_real_edges and plain.n_graphs == pb.n_graphs
+
+
+@pytest.mark.parametrize("kind", ["random", "bonds"])
+def test_batch_graphs_with_tables_sorts_nothing(kind, monkeypatch):
+    raws = _table_raws(kind)
+    _, want, _, ds = _table_batches(raws, 2, 3)
+    spec = ds.batch_spec(len(raws))
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("a batch-wide sort ran")
+
+    for name in ("argsort", "searchsorted", "bincount", "sort", "lexsort"):
+        monkeypatch.setattr(np, name, no_sort)
+    got = pgraph.batch_graphs(ds.graphs, spec, device="cpu", tables=ds.tables)
+    monkeypatch.undo()
+    for f in _FIELDS + _TABLE_FIELDS:
+        if getattr(want, f) is not None:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_edge_table_rejects_ids_out_of_range():
+    rng = np.random.default_rng(8)
+    spec = pgraph.GraphSpec(max_nodes=10, max_edges=200, n_graphs=1, edge_attr_dim=2)
+    g = pgraph.pad_graph(spec, **random_raw_graph(rng, 10))
+    g["dst"][0] = 10
+    with pytest.raises(ValueError, match="dst ids"):
+        pgraph.edge_table(g, spec)

@@ -260,9 +260,41 @@ def test_rollout_rebuild_matches_jax(rollout_case):
     assert got.shape == want.shape == (3, spec.max_nodes, 3)
     np.testing.assert_allclose(got[:, :n], want[:, :n], atol=1e-5)
     # the graphs were rebuilt from frames with no pair at the radius, where
-    # the JAX package's f32 cell list and scipy's f64 search could disagree
+    # the two packages' predicted frames (~2e-7 apart) could disagree
     for frame in (pds.graphs[0]["coord"][:n], got[1, :n]):
         d = np.linalg.norm(frame[:, None] - frame[None], axis=-1)
         assert np.abs(d - radius).min() > 1e-4
         dst, _ = radius_graph_np(frame, radius)
         assert dst.size == int(((d < radius) & (d > 0)).sum())
+
+
+def test_rollout_rebuild_batches_match_jax(rollout_case, monkeypatch):
+    """Each graph the rollout rebuilds is the JAX package's: the same cell
+    list (pairs with 0 < d^2 < r^2 in f32, in its walk's order), so the
+    same edges in the same order."""
+    import fastegnn_tpu.graph as jgraph
+    import fastegnn_tpu_torch.train.rollout as prollout
+
+    jds, pds, jm, params, pm = rollout_case
+    radius = 0.15
+    n = pds.graphs[0]["n_nodes"]
+    jspec, spec = (dataclasses.replace(ds.spec, max_edges=n * (n - 1)) for ds in (jds, pds))
+    seen = {"jax": [], "port": []}
+    for key, module in (("jax", jgraph), ("port", prollout)):
+        def record(*args, _batch=module.batch_graphs, _seen=seen[key], **kwargs):
+            _seen.append(_batch(*args, **kwargs))
+            return _seen[-1]
+        monkeypatch.setattr(module, "batch_graphs", record)
+    jrollout_rebuild(jm, params, jds.graphs[:1], jspec, 3, 2, radius)
+    rollout_rebuild(pm, pds.graphs[:1], spec, 3, 2, radius)
+    assert len(seen["jax"]) == len(seen["port"]) == 2
+    for k, (jb, pb) in enumerate(zip(seen["jax"], seen["port"])):
+        assert pb.n_real_edges == int(np.asarray(jb.edge_mask).sum()) > 0
+        for f in ("dst", "src", "edge_mask", "node_mask", "graph_id", "dst_count"):
+            np.testing.assert_array_equal(getattr(pb, f).numpy(), np.asarray(getattr(jb, f)),
+                                          err_msg=f)
+        # the first graph is built from the same frame; the next from each
+        # package's own prediction, within test_rollout_matches_jax's 1e-5
+        for f in ("coord", "vel", "edge_attr", "loc_mean"):
+            np.testing.assert_allclose(getattr(pb, f).numpy(), np.asarray(getattr(jb, f)),
+                                       rtol=0, atol=0 if k == 0 else 1e-5, err_msg=f)
