@@ -103,15 +103,26 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    adjacency's;
 11. the equivariance CLI on the card at 10 and 100 nodes for the five
    models and EGNN, RF, Linear, SchNet and TFN: every trial within 1e-4,
-   with each model's launches.
+   with each model's launches;
+12. the converged-parity harness ``[parity]``
+   (``scripts/torch_parity_nbody.py::run_port``, the JAX harness's
+   hyperparameters and loop) for 10 epochs each of FastEGNN, EGNN and
+   VNEGNN on a small 5-particle set that the generator writes with a worker
+   per CPU: the ``[best, log]`` JSON's shape, finite losses, epoch 10's
+   train loss below epoch 1's, exact launches, the seconds per epoch; then
+   the f32 edge kernels and EGNN's segment-sum forms held against their
+   plain versions on one 100-graph batch of that train split (rows of ~2
+   edges at the harness's cutoff, many of them empty).
 
-Phases 6 and 9-11 print their seconds.  Output: one JSON line
+Phases 6 and 9-12 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
-``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[gp]``'s as
+``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[parity]``'s as
+``parity_launches`` (per model), ``[gp]``'s as
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
 f32 checks on ``[gp]``'s table as ``gp_table_f32``, and
-its f32 checks on the CLI batch, the rollout graph and the N-body and
-protein batches; ``collate``, each ``[collate]``'s figures), the
+its f32 checks on the CLI batch, the rollout graph, the N-body and
+protein batches and ``[parity]``'s batch (``parity_f32``,
+``parity_EGNN_forms``); ``collate``, each ``[collate]``'s figures), the
 nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
 """
@@ -163,6 +174,14 @@ DP_RANKS, DP_STEPS, DP_ATOL, DP_JOIN_S = 2, 2, 1e-6, 300
 # tolerances (of the largest value) in f32 and bf16; the ranks' time limit
 GP_RANKS, GP_STEPS, GP_FWD_TOL, GP_BF16_TOL, GP_JOIN_S = 2, 2, 1e-4, 2e-2, 300
 GP_STEP_KW = dict(sigma=1.0, weight=0.01, sample=3, per_graph_sampling=True)   # the main path's
+# the converged-parity harness's phase ([parity]): the models, the 5-particle
+# set's trajectories per split (one batch of the harness's 100 in each eval
+# split) and the epochs (two evals at the harness's interval of 5)
+PARITY_MODELS = ("FastEGNN", "EGNN", "VNEGNN")
+PARITY_SIZES, PARITY_EPOCHS = dict(num_train=300, num_valid=100, num_test=100), 10
+# EGNN's segment-sum forms on the harness's batch: the dst mean of [f | m]
+# and the backwards of the gathers of [h | x] at dst and src
+PARITY_EGNN_FORMS = (("dst f32 [E, 67]", 67, False, "dst"), ("src f32 [E, 67]", 67, False, "src"))
 # the port's kernels, which [profile] lists wherever they rank
 OWN_KERNELS = ("edge_fwd", "edge_bwd", "segment_sum_kernel")
 KERNELS = ("edge_block_fwd", "edge_block_bwd", "segment_sum")
@@ -1743,6 +1762,80 @@ def equivariance_phase():
     return errors
 
 
+def parity_harness():
+    """``scripts/torch_parity_nbody.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_parity_nbody.py")
+    spec = importlib.util.spec_from_file_location("torch_parity_nbody", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parity_phase(tmp: str):
+    """Phase 12: the converged-parity harness on the card, ``PARITY_EPOCHS``
+    epochs of each of ``PARITY_MODELS`` on a 5-particle set of
+    ``PARITY_SIZES`` trajectories, with exact launches; then the f32 edge
+    kernels and ``PARITY_EGNN_FORMS`` against their plain versions on the
+    first batch of its train split.  Returns ``(per model its launches and
+    numbers, the edge kernels' checks, the segment-sum's)``."""
+    import torch
+
+    harness = parity_harness()
+    hp = harness.HP
+    draw = harness.ensure_dataset(f"{tmp}/parity", "5_0_0", os.cpu_count(), length=NB_LENGTH,
+                                  **PARITY_SIZES)
+    print(f"[parity] generated 5_0_0: {PARITY_SIZES} trajectories of 5 particles and "
+          f"{NB_LENGTH} steps in {draw['generate_s']:.2f} s, {draw['n_workers']} workers",
+          flush=True)
+    n_train = PARITY_SIZES["num_train"] // hp["batch_size"]
+    evals = PARITY_EPOCHS // hp["test_interval"]
+    n_eval = evals * (PARITY_SIZES["num_valid"] + PARITY_SIZES["num_test"]) // hp["batch_size"]
+    out = {}
+    for model in PARITY_MODELS:
+        path = f"{tmp}/parity_{model}.json"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        best, log = harness.run_port(PARITY_EPOCHS, path, data=f"{tmp}/parity", name="5_0_0",
+                                     model=model)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = expected_launches(model, LAYERS, PARITY_EPOCHS * n_train, n_eval)
+        with open(path) as f:
+            written = json.load(f)
+        print(f"[parity] {model}, {PARITY_EPOCHS} epochs of {n_train} train steps, {evals} "
+              f"evals of {n_eval // evals} batches: {best['seconds_per_epoch']:.4f} s per epoch, "
+              f"median step {best['step_ms_median']:.3f} ms; train losses {log['loss_train']}, "
+              f"test {log['loss']}; launches {launches} (expected {want})", flush=True)
+        check(written == [best, log] and {"epoch_index", "loss_valid", "loss_test",
+                                          "loss_train"} <= best.keys()
+              and sorted(log) == ["epochs", "loss", "loss_train"],
+              f"parity: {model}'s JSON is not the reference's [best, log]")
+        check(len(log["loss_train"]) == PARITY_EPOCHS and log["epochs"] == list(
+            range(hp["test_interval"], PARITY_EPOCHS + 1, hp["test_interval"])),
+              f"parity: {model} logged epochs {log['epochs']}")
+        losses = log["loss_train"] + log["loss"] + [best["loss_valid"], best["loss_test"]]
+        check(all(v == v and abs(v) < float("inf") for v in losses),
+              f"parity: {model} non-finite loss")
+        check(log["loss_train"][-1] < log["loss_train"][0],
+              f"parity: {model}'s train loss did not fall")
+        check(launches == want, f"parity: {model} launch counts differ from the path's")
+        out[model] = dict(launches=launches, seconds_per_epoch=best["seconds_per_epoch"],
+                          step_ms_median=best["step_ms_median"], loss_test=best["loss_test"],
+                          generate_s=draw["generate_s"])
+    dtr = harness.load_datasets(f"{tmp}/parity", "5_0_0", "FastEGNN", torch.device("cuda"))[0]
+    g = dtr.collate(list(range(hp["batch_size"])))
+    empty = int((g.rowptr[1:] == g.rowptr[:-1]).sum())
+    print(f"[parity] batch of {hp['batch_size']} graphs: {g.num_nodes} nodes, "
+          f"{g.n_real_edges} real edges ({g.n_real_edges / g.num_nodes:.2f} per node), "
+          f"{empty} nodes with no edge in", flush=True)
+    kern = kernel_phase(g, torch.Generator().manual_seed(8), modes=(False,), tag="parity")
+    seg = segsum_phase(g, torch.Generator().manual_seed(9), PARITY_EGNN_FORMS, tag="parity")
+    return out, kern, seg
+
+
 def path_launches(paths, name: str) -> dict:
     """The kernel ``name``'s launches over each N-body and protein CLI run,
     as ``{"nbody_launches": ..., "nbody_FastRF_launches": ..., ...}``."""
@@ -1813,6 +1906,12 @@ def main() -> int:
     eq_errors = equivariance_phase()
     phase_s["equivariance"] = time.perf_counter() - t0
     print(f"[equivariance] phase took {phase_s['equivariance']:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parity, parity_kern, parity_seg = parity_phase(tmp)
+    phase_s["parity"] = time.perf_counter() - t0
+    print(f"[parity] phase took {phase_s['parity']:.2f} s", flush=True)
+    parity_launches = {k: {m: parity[m]["launches"][k] for m in PARITY_MODELS} for k in KERNELS}
 
     entries = []
     for kind, line in (("fwd", 467), ("bwd", 503)):
@@ -1833,6 +1932,8 @@ def main() -> int:
             **path_launches(paths, name),
             "gp_launches": gp["launches"][name], "gp_nccl1_launches": gp["nccl1_launches"][name],
             "gp_table_f32": gp["table"][(kind, "f32")],
+            "parity_launches": parity_launches[name],
+            "parity_f32": parity_kern[(kind, "f32")],
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",
@@ -1844,6 +1945,8 @@ def main() -> int:
         **path_launches(paths, "segment_sum"),
         "gp_launches": gp["launches"]["segment_sum"],
         "gp_nccl1_launches": gp["nccl1_launches"]["segment_sum"],
+        "parity_launches": parity_launches["segment_sum"],
+        "parity_EGNN_forms": parity_seg,
         **seg["dst f32"],
         "forms": {k: v for k, v in seg.items() if k != "dst f32"},
         **{f"{p}_{m}_forms": run[1] for p in ("nbody", "protein")
@@ -1855,6 +1958,8 @@ def main() -> int:
                       **{p: {m: run[2] for m, run in paths[p].items()}
                          for p in ("nbody", "protein")},
                       "equivariance_max_abs_err": eq_errors, "collate": collate,
+                      "parity": {m: {k: v for k, v in parity[m].items() if k != "launches"}
+                                 for m in PARITY_MODELS},
                       "phase_s": phase_s}),
           flush=True)
     print(smi, flush=True)

@@ -7,6 +7,9 @@ checkpoint, early-stop after ``early_stop`` epochs without improvement, and
 rewrite a JSON log ``[best_log_dict, log_dict]`` every epoch.  The logged
 per-epoch loss is the pure MSE.  Checkpoints hold the model, the optimizer
 state, the step and the epoch, and ``resume_from`` continues from one.
+Besides the best-validation checkpoint, the loop saves the last epoch's
+with the best and log dicts, from which ``resume_from`` goes on as the
+uninterrupted run would have (log, best epoch and early stop included).
 
 Each step gets a host key made from ``(seed, tag, epoch, i)``
 (:func:`step_key`), so its MMD draw does not depend on what ran before it.
@@ -101,7 +104,11 @@ def train(
     the optimizer state, the step and the epoch and continues with the next
     epoch.  As in the JAX loop, the shuffle generator starts afresh from
     ``seed``, so after a resume the batches differ from an uninterrupted
-    run's unless ``shuffle=False``.
+    run's unless ``shuffle=False``.  A ``last`` checkpoint also restores
+    the best and log dicts and the seconds already run.
+
+    ``ckpt_directory``: save ``best`` at every better validation loss, and
+    ``last`` at the end of every epoch that does not stop the run.
 
     ``use_mmd``: add the MMD term to the training loss (the Fast* family;
     VNEGNN trains on the MSE alone).
@@ -142,6 +149,9 @@ def train(
         model.load_state_dict(ck["model"])
         optimizer.load_state_dict(ck["optimizer"])
         step, start_epoch = int(ck["step"]), int(ck["epoch"]) + 1
+        if "log" in ck:
+            best, log_dict = ck["best"], ck["log"]
+            start -= ck["seconds"]
         if verbose:
             print(f"resumed from {resume_from} at epoch {start_epoch}, step {step}",
                   flush=True)
@@ -218,5 +228,10 @@ def train(
             os.makedirs(log_directory, exist_ok=True)
             with open(os.path.join(log_directory, log_name), "w") as f:
                 json.dump([best, log_dict], f, indent=4)
+        if ckpt_directory is not None:
+            save_checkpoint(os.path.join(ckpt_directory, "last"),
+                            {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                             "step": step, "epoch": epoch, "best": best, "log": log_dict,
+                             "seconds": best["time_cost"]})
 
     return best, log_dict, step

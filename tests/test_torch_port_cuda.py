@@ -648,3 +648,36 @@ def test_equivariance_cli_on_the_card(cuda, capsys):
         # 3 trials of two forwards, 4 layers each
         assert ek.FWD_LAUNCHES - before == 3 * 2 * 4
     assert capsys.readouterr().out.count("PASS") == 2 * 3 + 2
+
+
+@pytest.mark.parametrize("model", ["FastEGNN", "EGNN", "VNEGNN"])
+def test_parity_harness_on_card_matches_cpu(cuda, tmp_path, model):
+    """3 epochs of ``scripts/torch_parity_nbody.py`` on the card against
+    ``--platform cpu``, from the same weights, on 5-particle graphs (whose
+    MMD sample takes every node, so the two devices' draws differ only in
+    their order)."""
+    import importlib.util
+    from pathlib import Path
+
+    from fastegnn_tpu_torch.models import get_model
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "torch_parity_nbody.py"
+    spec = importlib.util.spec_from_file_location("torch_parity_nbody", path)
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    root = str(tmp_path / "data")
+    name = harness.ensure_dataset(root, "5_0_0", 1, num_train=16, num_valid=4, num_test=4,
+                                  length=410, sample_freq=10)["name"]
+    hp = dict(harness.HP, batch_size=4, test_interval=1)
+    state = get_model(model, 2, 2, hidden=hp["hidden"], virtual_channels=hp["channels"],
+                      n_layers=hp["layers"], device="cpu",
+                      generator=torch.Generator().manual_seed(43)).state_dict()
+    (cbest, clog), (pbest, plog) = (
+        harness.run_port(3, str(tmp_path / f"{p}.json"), p, 43, data=root, name=name,
+                         model=model, hp=hp, state_dict=state)
+        for p in (None, "cpu"))
+    assert cbest["device"] != "cpu" and pbest["device"] == "cpu"
+    assert clog["epochs"] == plog["epochs"] == [1, 2, 3]
+    for key in ("loss_train", "loss"):
+        np.testing.assert_allclose(clog[key], plog[key], rtol=1e-4)
+    assert cbest["epoch_index"] == pbest["epoch_index"]

@@ -174,6 +174,23 @@ def test_resume_without_shuffle_equals_the_uninterrupted_run(trio, tmp_path):
         assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+def test_last_checkpoint_resumes_the_log_and_the_best(trio, tmp_path):
+    # every run with a checkpoint directory keeps its last epoch beside the
+    # best one, with the best and log dicts: resumed from it, the run logs
+    # what the uninterrupted run logs
+    _port_run(trio, 2, shuffle=False, ckpt_directory=str(tmp_path))
+    assert restore_checkpoint(str(tmp_path / "last"))["epoch"] == 2
+    best, log, step, _, _ = _port_run(trio, 3, shuffle=False)
+    rbest, rlog, rstep, _, _ = _port_run(trio, 3, init_seed=9, shuffle=False,
+                                         resume_from=str(tmp_path / "last"))
+    assert rstep == step == 9 and rlog["epochs"] == log["epochs"] == [1, 2, 3]
+    for key in ("loss_train", "loss"):
+        assert rlog[key] == log[key]
+    assert [t["epoch"] for t in rlog["telemetry"]] == [1, 2, 3]
+    assert {k: v for k, v in rbest.items() if k != "time_cost"} == \
+        {k: v for k, v in best.items() if k != "time_cost"}
+
+
 def test_resume_restarts_the_shuffle_from_the_seed(trio, tmp_path):
     # the JAX loop makes its shuffle generator afresh from `seed` on resume
     # (fastegnn_tpu/train/loop.py:131), and the port keeps that: the resumed
