@@ -41,6 +41,16 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    kernels against their plain versions on rank 0's table (a src table
    longer than its dst rows); (b) a one-rank NCCL group: the owner step
    against the plain step, both timed, then a profiler window over each;
+   then the weak-scaling sweep ``[scaling]`` (``scaling_phase``,
+   ``scripts/torch_bench_scaling.py`` in its own ``torchrun`` worlds): G =
+   1 over NCCL at the JAX script's defaults (512 nodes per shard of its
+   Morton-ordered cube graph, 2 layers, 10 timed steps) and at the main
+   path's size and depth (8000 nodes per shard, 4 layers), then G = 2 gloo
+   ranks sharing the card at 512 nodes per shard (a harness check, not a
+   scaling number); each line's edges and halo fields against the JAX
+   script's, L + L f32 edge launches per rank step on every rank; then the
+   f32 edge kernels against their plain versions on every rank's table of
+   every run;
 7. the CLI path: ``cli.common.run_training`` with the Water-3D CLI's
    defaults (f32, so the f32 edge kernels; batch 20; ``--virtual_channel 3
    --cutoff_rate 0.5``, and ``--radius 0.075`` for Water-3D's mean degree),
@@ -114,12 +124,14 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    plain versions on one 100-graph batch of that train split (rows of ~2
    edges at the harness's cutoff, many of them empty).
 
-Phases 6 and 9-12 print their seconds.  Output: one JSON line
+Phases 6 (``[gp]``, ``[scaling]``) and 9-12 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
 ``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[parity]``'s as
 ``parity_launches`` (per model), ``[gp]``'s as
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
-f32 checks on ``[gp]``'s table as ``gp_table_f32``, and
+f32 checks on ``[gp]``'s table as ``gp_table_f32``, ``[scaling]``'s
+launches per rank step of each run as ``scaling_launches`` and its f32
+checks, by run and rank, as ``scaling_table_f32``, and
 its f32 checks on the CLI batch, the rollout graph, the N-body and
 protein batches and ``[parity]``'s batch (``parity_f32``,
 ``parity_EGNN_forms``); ``collate``, each ``[collate]``'s figures), the
@@ -174,6 +186,16 @@ DP_RANKS, DP_STEPS, DP_ATOL, DP_JOIN_S = 2, 2, 1e-6, 300
 # tolerances (of the largest value) in f32 and bf16; the ranks' time limit
 GP_RANKS, GP_STEPS, GP_FWD_TOL, GP_BF16_TOL, GP_JOIN_S = 2, 2, 1e-4, 2e-2, 300
 GP_STEP_KW = dict(sigma=1.0, weight=0.01, sample=3, per_graph_sampling=True)   # the main path's
+# the weak-scaling sweep ([scaling]): its runs as (nodes per shard, layers,
+# G, ranks per card), the JAX script's defaults and the main path's size and
+# depth at G = 1 over NCCL, then two gloo ranks sharing the card; the timed
+# steps; each torchrun world's time limit
+SCALING_RUNS = ((512, 2, 1, 1), (N_NODES, LAYERS, 1, 1), (512, 2, 2, 2))
+SCALING_ITERS, SCALING_WORLD_S = 10, 300
+# the JAX script's graph and halo figures of those runs (bench_scaling.py's
+# build_batch and the JAX partitioner, on the CPU): (nodes per shard, G) ->
+# (real edges, S, real halo rows over all pairs)
+SCALING_JAX = {(512, 1): (11056, 1, 0), (N_NODES, 1): (207770, 1, 0), (512, 2): (23552, 153, 303)}
 # the converged-parity harness's phase ([parity]): the models, the 5-particle
 # set's trajectories per split (one batch of the harness's 100 in each eval
 # split) and the epochs (two evals at the harness's interval of 5)
@@ -1634,6 +1656,62 @@ def gp_phase(tmp: str, g) -> dict:
                              nccl1_profiled=profiled))
 
 
+def scaling_phase() -> dict:
+    """Phase 6, ``[scaling]``: ``scripts/torch_bench_scaling.py``'s sweep,
+    each run of ``SCALING_RUNS`` in its own ``torchrun`` world on the card
+    (the kernels built here, loaded by the ranks).  Each line's graph and
+    halo fields against the JAX script's (``SCALING_JAX``), its backend,
+    card and loss, and L + L f32 edge launches per rank step on every rank
+    (no segment-sum); then the f32 edge kernels against their plain
+    versions on every rank's table of every run."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    bench = script_module("torch_bench_scaling")
+    runs, launches, table = [], {}, {}
+    for nodes, layers, G, per_card in SCALING_RUNS:
+        argv = ["--devices", str(G), "--nodes-per-shard", str(nodes), "--layers", str(layers),
+                "--iters", str(SCALING_ITERS), "--ranks-per-card", str(per_card)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            every, line = bench.sweep(argv, timeout=SCALING_WORLD_S)
+        seconds = time.perf_counter() - t0
+        edges, halo, rows = SCALING_JAX[(nodes, G)]
+        want = bench.halo_fields(G, halo, rows)
+        backend = "nccl" if per_card == 1 else "gloo"
+        run = f"G{G} {backend} {nodes}x{layers}"
+        tag = f"G = {G} {backend}, {nodes} nodes per shard, {layers} layers"
+        kind = "harness check: ranks share the card" if per_card > 1 else "one card per rank"
+        print(f"[scaling] {tag} ({kind}; {seconds:.2f} s with torchrun): {json.dumps(every)}",
+              flush=True)
+        print(f"[scaling] {json.dumps(line)}", flush=True)
+        per_step = {"edge_block_fwd": layers, "edge_block_bwd": layers, "segment_sum": 0}
+        check((every["metric"], line["metric"]) == ("gp_launches_per_rank_step",
+                                                    "gp_weak_scaling"),
+              f"scaling: {tag} printed {every} and {line}")
+        check({k: line[k] for k in want} == want,
+              f"scaling: {tag}'s halo fields {line} against the JAX script's {want}")
+        check((line["devices"], line["nodes"], line["edges"], line["backend"],
+               line["ranks_per_card"], line["device"]) == (G, nodes * G, edges, backend, per_card,
+                                                          torch.cuda.get_device_name(0)),
+              f"scaling: {tag}'s line {line}")
+        check(math.isfinite(line["mse"]) and line["step_ms"] > 0, f"scaling: {tag}'s line {line}")
+        check(every["devices"] == G and every["steps"] == SCALING_ITERS
+              and every["ranks"] == [per_step] * G,
+              f"scaling: {tag} launched {every['ranks']} per rank step, not {per_step} on each")
+        runs.append(dict(line, seconds=seconds))
+        launches[run] = every["ranks"]
+        host, _ = bench.build_batch(nodes * G)
+        for r in range(G):
+            table[f"{run} rank {r}"] = kernel_phase(
+                gp_table_view(host, G, r), torch.Generator().manual_seed(10), modes=(False,),
+                tag=f"scaling table {run} rank {r}")
+    return dict(runs=runs, launches=launches, table=table)
+
+
 def nbody_phase(tmp: str):
     """Phase 8: the N-body CLI (``run_nbody.sh``'s configuration) on
     trajectories written by the port's generator with a worker per CPU,
@@ -1762,13 +1840,12 @@ def equivariance_phase():
     return errors
 
 
-def parity_harness():
-    """``scripts/torch_parity_nbody.py`` as a module."""
+def script_module(name: str):
+    """``scripts/<name>.py`` as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_parity_nbody.py")
-    spec = importlib.util.spec_from_file_location("torch_parity_nbody", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1783,7 +1860,7 @@ def parity_phase(tmp: str):
     numbers, the edge kernels' checks, the segment-sum's)``."""
     import torch
 
-    harness = parity_harness()
+    harness = script_module("torch_parity_nbody")
     hp = harness.HP
     draw = harness.ensure_dataset(f"{tmp}/parity", "5_0_0", os.cpu_count(), length=NB_LENGTH,
                                   **PARITY_SIZES)
@@ -1891,6 +1968,10 @@ def main() -> int:
         gp = gp_phase(tmp, g)
     phase_s["gp"] = time.perf_counter() - t0
     print(f"[gp] phase took {phase_s['gp']:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    scaling = scaling_phase()
+    phase_s["scaling"] = time.perf_counter() - t0
+    print(f"[scaling] phase took {phase_s['scaling']:.2f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_kern, trained, test_set, cli_collate = cli_phase(tmp)
     roll_kern = rollout_phase(trained, test_set)
@@ -1932,6 +2013,10 @@ def main() -> int:
             **path_launches(paths, name),
             "gp_launches": gp["launches"][name], "gp_nccl1_launches": gp["nccl1_launches"][name],
             "gp_table_f32": gp["table"][(kind, "f32")],
+            "scaling_launches": {run: [r[name] for r in ranks]
+                                 for run, ranks in scaling["launches"].items()},
+            "scaling_table_f32": {table: res[(kind, "f32")]
+                                  for table, res in scaling["table"].items()},
             "parity_launches": parity_launches[name],
             "parity_f32": parity_kern[(kind, "f32")],
         })
@@ -1945,6 +2030,8 @@ def main() -> int:
         **path_launches(paths, "segment_sum"),
         "gp_launches": gp["launches"]["segment_sum"],
         "gp_nccl1_launches": gp["nccl1_launches"]["segment_sum"],
+        "scaling_launches": {run: [r["segment_sum"] for r in ranks]
+                             for run, ranks in scaling["launches"].items()},
         "parity_launches": parity_launches["segment_sum"],
         "parity_EGNN_forms": parity_seg,
         **seg["dst f32"],
@@ -1955,6 +2042,7 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,
                       "variant_M_edge_messages_per_s": var_rate, "gp": gp["numbers"],
+                      "scaling": scaling["runs"],
                       **{p: {m: run[2] for m, run in paths[p].items()}
                          for p in ("nbody", "protein")},
                       "equivariance_max_abs_err": eq_errors, "collate": collate,
