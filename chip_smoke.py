@@ -122,19 +122,24 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    train loss below epoch 1's, exact launches, the seconds per epoch; then
    the f32 edge kernels and EGNN's segment-sum forms held against their
    plain versions on one 100-graph batch of that train split (rows of ~2
-   edges at the harness's cutoff, many of them empty).
+   edges at the harness's cutoff, many of them empty); then the Water-3D
+   matched harness (``scripts/torch_parity_simulation.py::run_port``:
+   FastEGNN with gravity and the per-graph MMD draw) for 10 epochs on the
+   committed protocol, with the same checks, and the f32 edge kernels held
+   on its first train batch (10 graphs of 200 particles: 2000 rows, at
+   most ~1300 edges, most rows empty).
 
 Phases 6 (``[gp]``, ``[scaling]``) and 9-12 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
 ``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[parity]``'s as
-``parity_launches`` (per model), ``[gp]``'s as
+``parity_launches`` (per model, and the Water-3D run's), ``[gp]``'s as
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
 f32 checks on ``[gp]``'s table as ``gp_table_f32``, ``[scaling]``'s
 launches per rank step of each run as ``scaling_launches`` and its f32
 checks, by run and rank, as ``scaling_table_f32``, and
 its f32 checks on the CLI batch, the rollout graph, the N-body and
-protein batches and ``[parity]``'s batch (``parity_f32``,
-``parity_EGNN_forms``); ``collate``, each ``[collate]``'s figures), the
+protein batches and ``[parity]``'s batches (``parity_f32``,
+``parity_EGNN_forms``, ``parity_water3d_f32``); ``collate``, each ``[collate]``'s figures), the
 nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
 """
@@ -201,6 +206,10 @@ SCALING_JAX = {(512, 1): (11056, 1, 0), (N_NODES, 1): (207770, 1, 0), (512, 2): 
 # split) and the epochs (two evals at the harness's interval of 5)
 PARITY_MODELS = ("FastEGNN", "EGNN", "VNEGNN")
 PARITY_SIZES, PARITY_EPOCHS = dict(num_train=300, num_valid=100, num_test=100), 10
+# the Water-3D matched harness's run in [parity] (two evals at its interval
+# of 5), on the committed protocol and the in-memory trio
+PARITY_WATER3D, PARITY_WATER3D_EPOCHS = "FastEGNN Water-3D", 10
+PARITY_RUNS = PARITY_MODELS + (PARITY_WATER3D,)
 # EGNN's segment-sum forms on the harness's batch: the dst mean of [f | m]
 # and the backwards of the gathers of [h | x] at dst and src
 PARITY_EGNN_FORMS = (("dst f32 [E, 67]", 67, False, "dst"), ("src f32 [E, 67]", 67, False, "src"))
@@ -1856,8 +1865,10 @@ def parity_phase(tmp: str):
     epochs of each of ``PARITY_MODELS`` on a 5-particle set of
     ``PARITY_SIZES`` trajectories, with exact launches; then the f32 edge
     kernels and ``PARITY_EGNN_FORMS`` against their plain versions on the
-    first batch of its train split.  Returns ``(per model its launches and
-    numbers, the edge kernels' checks, the segment-sum's)``."""
+    first batch of its train split; then :func:`parity_water3d_phase`.
+    Returns ``(per model, and for the Water-3D run, its launches and
+    numbers, the edge kernels' checks, the segment-sum's, the edge kernels'
+    checks on the Water-3D batch)``."""
     import torch
 
     harness = script_module("torch_parity_nbody")
@@ -1910,7 +1921,65 @@ def parity_phase(tmp: str):
           f"{empty} nodes with no edge in", flush=True)
     kern = kernel_phase(g, torch.Generator().manual_seed(8), modes=(False,), tag="parity")
     seg = segsum_phase(g, torch.Generator().manual_seed(9), PARITY_EGNN_FORMS, tag="parity")
-    return out, kern, seg
+    out[PARITY_WATER3D], w_kern = parity_water3d_phase(tmp)
+    return out, kern, seg, w_kern
+
+
+def parity_water3d_phase(tmp: str):
+    """Phase 12b: the Water-3D matched harness
+    (``scripts/torch_parity_simulation.py::run_port``: FastEGNN with gravity,
+    per-graph MMD, f32) for ``PARITY_WATER3D_EPOCHS`` epochs on the
+    committed protocol, with exact launches; then the f32 edge kernels
+    against their plain versions on the first batch of its train split (10
+    graphs of 200 particles, most rows without an edge).  Returns (its
+    launches and numbers, the edge kernels' checks)."""
+    import torch
+
+    harness = script_module("torch_parity_simulation")
+    hp = harness.HP
+    with open(harness.PROTOCOL_PATH) as f:
+        sizes = {s: len(p["order"]) for s, p in json.load(f).items()}
+    n_train = sizes["train"] // hp["batch_size"]
+    evals = PARITY_WATER3D_EPOCHS // hp["test_interval"]
+    n_eval = evals * (sizes["valid"] // hp["batch_size"] + sizes["test"] // hp["batch_size"])
+    path = f"{tmp}/parity_water3d.json"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    best, log = harness.run_port(PARITY_WATER3D_EPOCHS, path)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = expected_launches("FastEGNN", LAYERS, PARITY_WATER3D_EPOCHS * n_train, n_eval)
+    with open(path) as f:
+        written = json.load(f)
+    print(f"[parity] Water-3D, {PARITY_WATER3D_EPOCHS} epochs of {n_train} train steps, "
+          f"{evals} evals of {n_eval // evals} batches: {best['seconds_per_epoch']:.4f} s per "
+          f"epoch, median step {best['step_ms_median']:.3f} ms; train losses "
+          f"{log['loss_train']}, test {log['loss']}; launches {launches} (expected {want})",
+          flush=True)
+    check(written == [best, log] and {"epoch_index", "loss_valid", "loss_test",
+                                      "loss_train"} <= best.keys()
+          and sorted(log) == ["epochs", "loss", "loss_train"],
+          "parity: Water-3D's JSON is not the reference's [best, log]")
+    check(len(log["loss_train"]) == PARITY_WATER3D_EPOCHS and log["epochs"] == list(
+        range(hp["test_interval"], PARITY_WATER3D_EPOCHS + 1, hp["test_interval"])),
+          f"parity: Water-3D logged epochs {log['epochs']}")
+    losses = log["loss_train"] + log["loss"] + [best["loss_valid"], best["loss_test"]]
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          "parity: Water-3D non-finite loss")
+    check(log["loss_train"][-1] < log["loss_train"][0],
+          "parity: Water-3D's train loss did not fall")
+    check(launches == want, "parity: Water-3D launch counts differ from the path's")
+    dtr = harness.load_datasets(torch.device("cuda"))[0][0]
+    g = dtr.collate(list(range(hp["batch_size"])))
+    empty = int((g.rowptr[1:] == g.rowptr[:-1]).sum())
+    print(f"[parity] Water-3D batch of {hp['batch_size']} graphs: {g.num_nodes} nodes, "
+          f"{g.n_real_edges} real edges ({g.n_real_edges / g.num_nodes:.2f} per node), "
+          f"{empty} nodes with no edge in", flush=True)
+    kern = kernel_phase(g, torch.Generator().manual_seed(10), modes=(False,),
+                        tag="parity_water3d")
+    return dict(launches=launches, seconds_per_epoch=best["seconds_per_epoch"],
+                step_ms_median=best["step_ms_median"], loss_test=best["loss_test"],
+                rows=g.num_nodes, real_edges=g.n_real_edges, empty_rows=empty), kern
 
 
 def path_launches(paths, name: str) -> dict:
@@ -1989,10 +2058,10 @@ def main() -> int:
     print(f"[equivariance] phase took {phase_s['equivariance']:.2f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        parity, parity_kern, parity_seg = parity_phase(tmp)
+        parity, parity_kern, parity_seg, water3d_kern = parity_phase(tmp)
     phase_s["parity"] = time.perf_counter() - t0
     print(f"[parity] phase took {phase_s['parity']:.2f} s", flush=True)
-    parity_launches = {k: {m: parity[m]["launches"][k] for m in PARITY_MODELS} for k in KERNELS}
+    parity_launches = {k: {m: parity[m]["launches"][k] for m in PARITY_RUNS} for k in KERNELS}
 
     entries = []
     for kind, line in (("fwd", 467), ("bwd", 503)):
@@ -2019,6 +2088,7 @@ def main() -> int:
                                   for table, res in scaling["table"].items()},
             "parity_launches": parity_launches[name],
             "parity_f32": parity_kern[(kind, "f32")],
+            "parity_water3d_f32": water3d_kern[(kind, "f32")],
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",
@@ -2047,7 +2117,7 @@ def main() -> int:
                          for p in ("nbody", "protein")},
                       "equivariance_max_abs_err": eq_errors, "collate": collate,
                       "parity": {m: {k: v for k, v in parity[m].items() if k != "launches"}
-                                 for m in PARITY_MODELS},
+                                 for m in PARITY_RUNS},
                       "phase_s": phase_s}),
           flush=True)
     print(smi, flush=True)

@@ -63,7 +63,7 @@ class RFGCLVel(nn.Module):
         """``(x [N, 3], vx [B, C, 3])``; ``h`` and ``vh`` are unchanged."""
         cfg = self.cfg
         _, trans_sum = real_edge_sums(self, h, x, graph)
-        vb = virtual_block(cfg, self, h, x, vx, vh, graph.graph_id, graph.node_mask,
+        vb = virtual_block(cfg, self, h, x, vx, vh, graph.node_mask,
                            pool_messages=False)
         x_new = x + trans_sum / graph.dst_count.clamp_min(1.0)[:, None]
         x_new = x_new - vb.pull

@@ -25,7 +25,7 @@ They read a layer's weights in the reference layout (``EGCLVel``,
 coordinates ``[B, C, 3]``, features ``[B, C, H]``, per-node virtual
 messages ``[n, C, H]``.  The per-graph gather is a broadcast over the
 batch's ``[B, n_max]`` node layout (:func:`per_graph_take`) and the
-per-graph pool a masked ``index_add_`` mean, unless the caller passes its
+per-graph pool a masked sum over that layout (:func:`per_graph_pool`), unless the caller passes its
 own ``take`` / ``pool`` (the owner-sharded path, ``parallel/owner_graph.py``,
 whose rows are one shard of the batch).
 """
@@ -43,7 +43,6 @@ from fastegnn_tpu_torch import resolve_device
 from fastegnn_tpu_torch.graph import GraphBatch
 from fastegnn_tpu_torch.models.nn import init_parameters_, linear
 from fastegnn_tpu_torch.ops.edge_kernel import FE_MAX, H as EDGE_H, fused_edge_block
-from fastegnn_tpu_torch.ops.segment import graph_mean_pool
 from fastegnn_tpu_torch.ops.spmm import gather_dst, gather_src, sorted_segment_sum_csr
 
 
@@ -72,6 +71,19 @@ def per_graph_take(table: torch.Tensor, n_nodes: int) -> torch.Tensor:
     B = table.shape[0]
     rest = table.shape[1:]
     return table[:, None].expand(B, n_nodes // B, *rest).reshape(n_nodes, *rest)
+
+
+def per_graph_pool(z: torch.Tensor, node_mask: torch.Tensor, n_graphs: int) -> torch.Tensor:
+    """``z [N, ...]`` -> ``[B, ...]``: each graph's mean over its real node
+    rows, the dual of :func:`per_graph_take` over the same layout (the JAX
+    ``graph_mean_pool``).  A sum over the ``n_max`` axis, which the card
+    reduces in a fixed order; ``index_add_`` adds with float atomics there,
+    so one batch's pool, and the step's losses, could change in the last
+    bit from one call to the next."""
+    n, rest = z.shape[0], z.shape[1:]
+    m = node_mask.to(z.dtype).reshape(n_graphs, n // n_graphs, *(1,) * len(rest))
+    total = (z.reshape(n_graphs, n // n_graphs, *rest) * m).sum(1)
+    return total / m.sum(1).clamp_min(1.0)
 
 
 def gather_edge_ends(graph, h: torch.Tensor, x: torch.Tensor):
@@ -147,7 +159,7 @@ class VirtualBlock:
     pool_mv: Optional[torch.Tensor]  # [B, C, H] their per-graph mean, if asked
 
 
-def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, graph_id, node_mask,
+def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, node_mask,
                   pool_messages: bool = True, take=None, pool=None) -> VirtualBlock:
     """The dense real <-> virtual block of FastEGNN, FastRF and FastSchNet
     (the JAX package keeps a copy in each: ``fast_egnn.py``,
@@ -159,7 +171,7 @@ def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, graph_id, node_mask,
 
     ``take(table [B, ...]) -> [n, ...]`` and ``pool(z [n, ...]) -> [B, ...]``
     (the f32 per-graph mean over real nodes) default to the whole batch's
-    :func:`per_graph_take` and ``graph_mean_pool``; the owner-sharded path
+    :func:`per_graph_take` and :func:`per_graph_pool`; the owner-sharded path
     passes a take by ``graph_id`` and a pool summed over its shards (the
     JAX ``virtual_and_node_update(..., take=, pool=)``)."""
     H, C = cfg.hidden, cfg.virtual_channels
@@ -172,7 +184,7 @@ def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, graph_id, node_mask,
 
     if pool is None:
         def pool(z):
-            return graph_mean_pool(z.float(), graph_id, B, node_mask)
+            return per_graph_pool(z.float(), node_mask, B)
 
     vdiff = take(vx.float()) - x[:, None, :]                  # [n, C, 3]
     vrad = (vdiff * vdiff).sum(-1).sqrt()                      # [n, C]
@@ -228,7 +240,7 @@ def virtual_and_node_update(
     v: torch.Tensor,            # [n, 3]
     vx: torch.Tensor,           # [B, C, 3] virtual coords
     vh: torch.Tensor,           # [B, C, H] virtual feats
-    graph_id: torch.Tensor,     # [n] in [0, B]; B = padding
+    graph_id: torch.Tensor,     # [n] in [0, B]; the JAX signature's, unused here
     node_mask: torch.Tensor,    # [n] bool
     agg_x: torch.Tensor,        # [n, 3] aggregated edge translations
     agg_e: torch.Tensor,        # [n, H] aggregated edge messages (mean)
@@ -240,7 +252,7 @@ def virtual_and_node_update(
     """FastEGNN's layer after edge aggregation; returns ``(h, x, vx, vh)``.
     ``take`` / ``pool``: :func:`virtual_block`'s."""
     cd = cfg.compute_dtype
-    vb = virtual_block(cfg, layer, h, x, vx, vh, graph_id, node_mask, take=take, pool=pool)
+    vb = virtual_block(cfg, layer, h, x, vx, vh, node_mask, take=take, pool=pool)
     x_new = x + agg_x
     x_new = x_new - vb.pull
     x_new = x_new + node_gate(layer.coord_mlp_vel, h, cd) * v

@@ -219,7 +219,7 @@ class SchNetGCL(nn.Module):
         radial = ((x_d - x_s) ** 2).sum(-1, keepdim=True)
         m_e = edge_features(cfg, self, h_d, h_s, radial, graph.edge_attr[:graph.n_real_edges])
         x_new, _ = self.SchNetLayer(h, x, graph, edge_ends=ends, features=False)
-        vb = virtual_block(cfg, self, h, x, vx, vh, graph.graph_id, graph.node_mask)
+        vb = virtual_block(cfg, self, h, x, vx, vh, graph.node_mask)
         x_new = x_new - vb.pull
         if cfg.has_gravity:
             x_new = x_new + node_gate(self.gravity_mlp, h, cfg.compute_dtype) * gravity

@@ -75,7 +75,7 @@ class TFNGCLVel(nn.Module):
         cfg = self.cfg
         tfn_out = self.tfn_layer(tfn_h, graph, tfn_inputs)
         x_new = x + vec_from_sh(tfn_out[1][:, 0, :])
-        vb = virtual_block(cfg, self, h, x, vx, vh, graph.graph_id, graph.node_mask,
+        vb = virtual_block(cfg, self, h, x, vx, vh, graph.node_mask,
                            pool_messages=features)
         x_new = x_new - vb.pull
         if cfg.has_gravity:

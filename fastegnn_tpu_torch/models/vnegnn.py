@@ -38,9 +38,9 @@ from torch.nn.functional import silu
 
 from fastegnn_tpu_torch.graph import GraphBatch
 from fastegnn_tpu_torch.models.fastegnn_core import (
-    LayerCfg, VirtualNodeModel, fits_fused, gate_head, per_graph_take, real_edge_sums)
+    LayerCfg, VirtualNodeModel, fits_fused, gate_head, per_graph_pool, per_graph_take,
+    real_edge_sums)
 from fastegnn_tpu_torch.models.nn import coord_mlp, mlp
-from fastegnn_tpu_torch.ops.segment import graph_mean_pool
 
 
 def _cell(module: nn.Module, hidden: int, edge_in: int, attention: bool) -> None:
@@ -111,7 +111,7 @@ class EGCL_A2V(nn.Module):
         B = vx.shape[0]
 
         def pool(z):
-            return graph_mean_pool(z, graph.graph_id, B, graph.node_mask)
+            return per_graph_pool(z, graph.node_mask, B)
 
         vx = vx + pool((vdiff * gate[..., None]).reshape(n, C * 3)).reshape(B, C, 3)
         pool_m = pool(m.reshape(n, C * H)).reshape(B, C, H)

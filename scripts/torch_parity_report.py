@@ -12,7 +12,18 @@ ratio to the JAX number against the band fixed before the runs
 (``BAND``); the test MSE at ``PARITY.md``'s equal epochs; the device.
 The JAX wall times were taken on a TPU and are not quoted.
 
-    python scripts/torch_parity_report.py [--dir docs/parity_port] [--jax_dir docs/parity]
+The Water-3D matched experiment (``scripts/torch_parity_simulation.py``)
+has its JAX runs beside the port's, in ``{dir}/water3d_jax_s{seed}.json``
+(``scripts/parity_simulation.py --side jax --matched``, seeds 43-47, on a
+CPU), and is judged by two criteria that those JSONs alone fix
+(:func:`water3d_criteria`): (a) the port seeds' median best test MSE
+inside [min, max] of the JAX seeds'; (b) at each logged epoch up to
+``WATER3D["band_until"]`` the port seeds' median test MSE over the JAX
+seeds' median inside 1 +- the JAX seeds' own largest deviation from their
+median at those epochs, never tighter than ``WATER3D["band_floor"]``.
+
+    python scripts/torch_parity_report.py [--dir docs/parity_port] [--jax_dir docs/parity] \
+        [--water3d_jax_dir DIR]
 """
 
 from __future__ import annotations
@@ -47,6 +58,12 @@ EXPERIMENTS = (
          ref_json="parity100_torch.json"),
 )
 
+# extra_seeds: more runs a side, reported beside the criterion, which they
+# do not change
+WATER3D = dict(title="Water-3D matched protocol, FastEGNN (gravity, per-graph MMD)",
+               seeds=(43, 44, 45, 46, 47), cap=700, band_until=200, band_floor=0.05,
+               marks=(100, 200, 300, 400, 500, 600, 700), extra_seeds=(48, 49, 50, 51, 52))
+
 
 def load(path):
     """``(best, log)`` of a ``[best, log]`` JSON, or None when it is absent."""
@@ -77,8 +94,24 @@ def equal_epoch_rows(logs, marks):
     return [(e, [mse_at(log, e) for log in logs]) for e in marks]
 
 
-def _num(v) -> str:
-    return "—" if v is None else f"{v:.6f}"
+def water3d_extra_lines(root: str, exp: dict, jax_root=None):
+    """The best test MSE over every seed run, the criterion's and
+    ``exp["extra_seeds"]``, on each side: a line, or none without extra runs."""
+    seeds = exp["seeds"] + exp.get("extra_seeds", ())
+    bests = {side: [r[0]["loss_test"] for r in (load(water3d_path(d, side, s)) for s in seeds)
+                    if r is not None]
+             for side, d in (("jax", jax_root or root), ("fastegnn", root))}
+    if all(len(v) <= len(exp["seeds"]) for v in bests.values()):
+        return []
+    j, p = bests["jax"], bests["fastegnn"]
+    return [f"Beside the criterion, over seeds {seeds[0]}-{seeds[-1]}: the JAX median best "
+            f"test MSE {statistics.median(j):.6f} over {len(j)} seeds, range [{min(j):.6f}, "
+            f"{max(j):.6f}]; the port's {statistics.median(p):.6f} over {len(p)} seeds, range "
+            f"[{min(p):.6f}, {max(p):.6f}].", ""]
+
+
+def _num(v, digits: int = 6) -> str:
+    return "—" if v is None else f"{v:.{digits}f}"
 
 
 def experiment_lines(exp: dict, root: str, jax_dir: str):
@@ -131,28 +164,157 @@ def experiment_lines(exp: dict, root: str, jax_dir: str):
     return lines + [""]
 
 
+def water3d_path(root: str, side: str, seed: int) -> str:
+    """A Water-3D run's JSON: ``side`` is ``jax`` or ``fastegnn`` (the port)."""
+    return os.path.join(root, f"water3d_{side}_s{seed}.json")
+
+
+def water3d_band(jax_logs, until: int, floor: float):
+    """``(half width, epoch)`` of criterion (b)'s band: the JAX seeds'
+    largest relative deviation from their median test MSE at an epoch all
+    of them logged up to ``until``, and where it lies; at least ``floor``."""
+    epochs = [e for e in jax_logs[0]["epochs"] if e <= until
+              and all(e in log["epochs"] for log in jax_logs)]
+    half, at = floor, None
+    for e in epochs:
+        vals = [mse_at(log, e) for log in jax_logs]
+        med = statistics.median(vals)
+        dev = max(abs(v / med - 1.0) for v in vals)
+        if dev > half:
+            half, at = dev, e
+    return half, at
+
+
+def water3d_criteria(jax_runs, port_runs, until: int, floor: float) -> dict:
+    """Criteria (a) and (b) over ``[(best, log)]`` of the JAX and the port
+    seeds, with their numbers."""
+    jax_best = [b["loss_test"] for b, _ in jax_runs]
+    port_med = statistics.median(b["loss_test"] for b, _ in port_runs)
+    lo, hi = min(jax_best), max(jax_best)
+    half, half_at = water3d_band([log for _, log in jax_runs], until, floor)
+    rows = []
+    for e in jax_runs[0][1]["epochs"]:
+        if e > until:
+            continue
+        jv = [mse_at(log, e) for _, log in jax_runs]
+        pv = [mse_at(log, e) for _, log in port_runs]
+        if None in jv or None in pv:
+            continue
+        ratio = statistics.median(pv) / statistics.median(jv)
+        rows.append((e, ratio, abs(ratio - 1.0) <= half))
+    return dict(port_median=port_med, jax_min=lo, jax_max=hi, a=lo <= port_med <= hi,
+                half=half, half_at=half_at, b_rows=rows,
+                b=bool(rows) and all(ok for _, _, ok in rows))
+
+
+def water3d_lines(root: str, exp: dict = WATER3D, jax_root=None):
+    lines = [f"## {exp['title']} (cap {exp['cap']} epochs)", "",
+             "`scripts/torch_parity_simulation.py` against the unchanged "
+             "`scripts/parity_simulation.py --side jax --matched` (JAX on a CPU): the JAX "
+             "script's synthetic trio (4 trajectories of 200 particles and 300 frames per split, "
+             "seed 7) replayed through one sampling protocol, "
+             "`water3d_protocol.json` beside this file (60 samples per split; batch 10, "
+             "sigma 1.0, weight 0.01, H 64, C 3, L 4, cutoff 0.0, `delta_t` 20, no shuffle, an "
+             "eval every 5 epochs, no early stop). Each side's seeds set its own init and MMD "
+             "draws.", ""]
+    jax = {s: load(water3d_path(jax_root or root, "jax", s)) for s in exp["seeds"]}
+    jax = {s: r for s, r in jax.items() if r is not None}
+    port = {s: load(water3d_path(root, "fastegnn", s)) for s in exp["seeds"]}
+    port = {s: r for s, r in port.items() if r is not None}
+    if not jax:
+        return lines + ["*(no JAX run yet)*", ""]
+    half, half_at = water3d_band([log for _, log in jax.values()], exp["band_until"],
+                                 exp["band_floor"])
+    jax_best = [b["loss_test"] for b, _ in jax.values()]
+    lines += [
+        f"Criterion, fixed from the JAX seeds {sorted(jax)} before the port's runs:",
+        "",
+        f"- (a) the median over the port's seeds of the best test MSE lies in the JAX "
+        f"seeds' [min, max] = [{min(jax_best):.6f}, {max(jax_best):.6f}];",
+        f"- (b) at each logged epoch <= {exp['band_until']}, the port seeds' median test MSE "
+        f"over the JAX seeds' median lies in [{1 - half:.4f}, {1 + half:.4f}]: the JAX "
+        f"seeds' largest deviation from their median there ("
+        + (f"{half:.4f}, at epoch {half_at}" if half_at is not None else
+           f"under {exp['band_floor']}") + f"), never tighter than +-{exp['band_floor']}.",
+        "",
+        "| side, seed | best test MSE | valid | best epoch | epochs run | wall s | s / epoch | "
+        "median step ms | device |",
+        "|---|---|---|---|---|---|---|---|---|"]
+    # the JAX JSONs carry no device: they were run on the CPU host
+    jax_device = "CPU (JAX; the five seeds side by side on 8 cores)"
+    for side, runs in (("JAX", jax), ("port", port)):
+        for s, (b, log) in runs.items():
+            lines.append(
+                f"| {side} {s} | {b['loss_test']:.6f} | {b['loss_valid']:.6f} | "
+                f"{b['epoch_index']} | {b.get('epochs_run', len(log['loss_train']))} | "
+                f"{_num(b.get('time_cost'), 1)} | {_num(b.get('seconds_per_epoch'), 3)} | "
+                f"{_num(b.get('step_ms_median'), 3)} | {b.get('device', jax_device)} |")
+    lines.append("")
+    if port:
+        c = water3d_criteria(list(jax.values()), list(port.values()), exp["band_until"],
+                             exp["band_floor"])
+        worst = max(c["b_rows"], key=lambda r: abs(r[1] - 1.0)) if c["b_rows"] else None
+        missing = [s for s in exp["seeds"] if s not in port]
+        lines += [
+            f"- (a) port median best test MSE over seeds {sorted(port)}: **{c['port_median']:.6f}**"
+            + (f" (seeds {missing} not run)" if missing else "") + ", "
+            + ("**pass**" if c["a"] else "**fail**")
+            + f": the JAX range is [{c['jax_min']:.6f}, {c['jax_max']:.6f}].",
+            f"- (b) {len(c['b_rows'])} logged epochs <= {exp['band_until']}; "
+            + (f"the farthest ratio {worst[1]:.4f} at epoch {worst[0]}; " if worst else "")
+            + f"{sum(not ok for _, _, ok in c['b_rows'])} outside [{1 - c['half']:.4f}, "
+            f"{1 + c['half']:.4f}]: " + ("**pass**" if c["b"] else "**fail**") + ".",
+            "", "In plain words: " + (
+                "both criteria pass; the port converges on Water-3D as the JAX package does."
+                if c["a"] and c["b"] else
+                "the port fails " + " and ".join(k for k in ("(a)", "(b)")
+                                                 if not c[k[1]]) + "."),
+            ""] + water3d_extra_lines(root, exp, jax_root) + [
+            "Port / JAX median test MSE at the logged epochs <= "
+            f"{exp['band_until']}:", "",
+            "| epoch | ratio | in band |", "|---|---|---|"]
+        lines += [f"| {e} | {r:.4f} | {'yes' if ok else '**no**'} |" for e, r, ok in c["b_rows"]]
+        lines.append("")
+    else:
+        lines += ["*(no run of the port yet)*", ""]
+    labels = [f"JAX s{s}" for s in jax] + [f"port s{s}" for s in port]
+    logs = [log for _, log in jax.values()] + [log for _, log in port.values()]
+    lines += ["Test MSE at equal epochs:", "",
+              "| epoch | " + " | ".join(labels) + " | JAX median | port median |",
+              "|---" * (len(labels) + 3) + "|"]
+    for e, vals in equal_epoch_rows(logs, exp["marks"]):
+        jv, pv = vals[:len(jax)], vals[len(jax):]
+        med = [statistics.median(v) if v and None not in v else None for v in (jv, pv)]
+        lines.append(f"| {e} | " + " | ".join(_num(v) for v in vals + med) + " |")
+    return lines + [""]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dir", default=os.path.join(REPO, "docs", "parity_port"))
     p.add_argument("--jax_dir", default=os.path.join(REPO, "docs", "parity"))
+    p.add_argument("--water3d_jax_dir", default=None,
+                   help="the Water-3D JAX JSONs' directory (default --dir)")
     a = p.parse_args(argv)
     lines = [
         "# Converged-MSE parity of the PyTorch / CUDA port against the JAX package",
         "",
         "Written by `scripts/torch_parity_report.py` from the `[best, log]` JSONs beside",
-        "this file, which `scripts/torch_parity_nbody.py` wrote: the JAX harness's",
-        "data, hyperparameters and loop (`scripts/parity_nbody.py`), trained to early",
-        "stop or the epoch cap.  `scripts/torch_parity_runs.sh` starts the eight runs",
-        "together on one card, each process on one CPU thread; each JSON's `data`",
-        "says how its dataset was drawn.",
-        "Criterion, fixed before the runs: the median over seeds of the port's best",
-        f"test MSE, over the JAX number, in [{BAND[0]}, {BAND[1]}].",
-        "The JAX numbers come from `docs/parity/`; its wall times were taken on a",
-        "TPU and are not quoted.",
+        "this file.  N-body: `scripts/torch_parity_nbody.py` wrote them, with the JAX",
+        "harness's data, hyperparameters and loop (`scripts/parity_nbody.py`), trained",
+        "to early stop or the epoch cap.  `scripts/torch_parity_runs.sh` starts those",
+        "eight runs together on one card, each process on one CPU thread; each JSON's",
+        "`data` says how its dataset was drawn.",
+        "Their criterion, fixed before the runs: the median over seeds of the port's",
+        f"best test MSE, over the JAX number, in [{BAND[0]}, {BAND[1]}].",
+        "Their JAX numbers come from `docs/parity/`; its wall times were taken on a",
+        "TPU and are not quoted.  Water-3D, the last section, has its own JAX runs",
+        "and criterion.",
         "",
     ]
     for exp in EXPERIMENTS:
         lines += experiment_lines(exp, a.dir, a.jax_dir)
+    lines += water3d_lines(a.dir, jax_root=a.water3d_jax_dir)
     os.makedirs(a.dir, exist_ok=True)
     with open(os.path.join(a.dir, "PARITY.md"), "w") as f:
         f.write("\n".join(lines))

@@ -369,3 +369,25 @@ def test_se3_equivariance_without_gravity():
             np.testing.assert_allclose(x1[mask], (x0 @ R + t)[mask], atol=1e-4, rtol=1e-4)
             np.testing.assert_allclose(
                 v1, np.einsum("ji,bjc->bic", R, v0) + t[None, :, None], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rest", [(3,), (3, 5)])
+def test_per_graph_pool_is_the_jax_graph_mean_pool(rest):
+    """The virtual-node pool, a masked sum over the batch's ``[B, n_max]``
+    layout, against the JAX ``graph_mean_pool`` over ``graph_id``: padded
+    rows (the dump id ``B``) add nothing and a graph without a real node
+    pools to 0.  Measured gap 1.2e-7 (the two sum in another order); atol
+    1e-6 on values of order 1."""
+    from fastegnn_tpu.ops.segment import graph_mean_pool as jpool
+
+    rng = np.random.default_rng(3)
+    B, n_max = 4, 7
+    mask = rng.random(B * n_max) < 0.7
+    mask[2 * n_max:3 * n_max] = False                 # graph 2 has no real node
+    gid = np.where(mask, np.repeat(np.arange(B), n_max), B)
+    z = rng.normal(size=(B * n_max,) + rest).astype(np.float32)
+    got = pcore.per_graph_pool(torch.tensor(z), torch.tensor(mask), B)
+    want = np.asarray(jpool(jnp.asarray(z), jnp.asarray(gid), B, jnp.asarray(mask)))
+    assert got.shape == (B,) + rest
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert not got[2].any()

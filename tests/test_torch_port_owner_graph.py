@@ -37,10 +37,10 @@ from fastegnn_tpu_torch.cli import generate_nbody as pgen
 from fastegnn_tpu_torch.cli import nbody as pnbody
 from fastegnn_tpu_torch.cli.common import check_mesh
 from fastegnn_tpu_torch.graph import GraphSpec, batch_graphs, pad_graph
-from fastegnn_tpu_torch.models.fastegnn_core import LayerCfg, per_graph_take, virtual_and_node_update
+from fastegnn_tpu_torch.models.fastegnn_core import (
+    LayerCfg, per_graph_pool, per_graph_take, virtual_and_node_update)
 from fastegnn_tpu_torch.models.fast_egnn import FastEGNN
 from fastegnn_tpu_torch.ops.neighbors import radius_graph_np
-from fastegnn_tpu_torch.ops.segment import graph_mean_pool
 from fastegnn_tpu_torch.parallel import (
     OwnerBatchFactory,
     OwnerCapacityError,
@@ -281,7 +281,7 @@ def test_take_and_pool_defaults_leave_the_layer_bit_for_bit():
     default = virtual_and_node_update(*args, gravity=model.gravity)
     explicit = virtual_and_node_update(
         *args, gravity=model.gravity, take=lambda t: per_graph_take(t, n),
-        pool=lambda z: graph_mean_pool(z.float(), pb.graph_id, B, pb.node_mask))
+        pool=lambda z: per_graph_pool(z.float(), pb.node_mask, B))
     for a, b in zip(default, explicit):
         assert torch.equal(a, b)
 
