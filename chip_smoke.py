@@ -127,19 +127,26 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    FastEGNN with gravity and the per-graph MMD draw) for 10 epochs on the
    committed protocol, with the same checks, and the f32 edge kernels held
    on its first train batch (10 graphs of 200 particles: 2000 rows, at
-   most ~1300 edges, most rows empty).
+   most ~1300 edges, most rows empty); then the protein harness
+   (``scripts/torch_parity_protein.py::run_port``: FastEGNN with the
+   shared MMD draw at weight 0.5) for 5 epochs on the committed synthetic
+   AdK chain, with the same checks, and the f32 edge kernels held on its
+   first train batch (50 graphs of 60 atoms: 3000 rows, their 10 Angstrom
+   contacts).
 
 Phases 6 (``[gp]``, ``[scaling]``) and 9-12 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
 ``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[parity]``'s as
-``parity_launches`` (per model, and the Water-3D run's), ``[gp]``'s as
+``parity_launches`` (per model, and the Water-3D and protein runs'; the
+protein run's also as ``parity_protein_launches``), ``[gp]``'s as
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
 f32 checks on ``[gp]``'s table as ``gp_table_f32``, ``[scaling]``'s
 launches per rank step of each run as ``scaling_launches`` and its f32
 checks, by run and rank, as ``scaling_table_f32``, and
 its f32 checks on the CLI batch, the rollout graph, the N-body and
 protein batches and ``[parity]``'s batches (``parity_f32``,
-``parity_EGNN_forms``, ``parity_water3d_f32``); ``collate``, each ``[collate]``'s figures), the
+``parity_EGNN_forms``, ``parity_water3d_f32``, ``parity_protein_f32``);
+``collate``, each ``[collate]``'s figures), the
 nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits 1 and prints no result.
 """
@@ -209,7 +216,10 @@ PARITY_SIZES, PARITY_EPOCHS = dict(num_train=300, num_valid=100, num_test=100), 
 # the Water-3D matched harness's run in [parity] (two evals at its interval
 # of 5), on the committed protocol and the in-memory trio
 PARITY_WATER3D, PARITY_WATER3D_EPOCHS = "FastEGNN Water-3D", 10
-PARITY_RUNS = PARITY_MODELS + (PARITY_WATER3D,)
+# the protein harness's run in [parity] (one eval at its interval of 5), on
+# the committed synthetic AdK chain
+PARITY_PROTEIN, PARITY_PROTEIN_EPOCHS = "FastEGNN protein", 5
+PARITY_RUNS = PARITY_MODELS + (PARITY_WATER3D, PARITY_PROTEIN)
 # EGNN's segment-sum forms on the harness's batch: the dst mean of [f | m]
 # and the backwards of the gathers of [h | x] at dst and src
 PARITY_EGNN_FORMS = (("dst f32 [E, 67]", 67, False, "dst"), ("src f32 [E, 67]", 67, False, "src"))
@@ -1865,10 +1875,11 @@ def parity_phase(tmp: str):
     epochs of each of ``PARITY_MODELS`` on a 5-particle set of
     ``PARITY_SIZES`` trajectories, with exact launches; then the f32 edge
     kernels and ``PARITY_EGNN_FORMS`` against their plain versions on the
-    first batch of its train split; then :func:`parity_water3d_phase`.
-    Returns ``(per model, and for the Water-3D run, its launches and
-    numbers, the edge kernels' checks, the segment-sum's, the edge kernels'
-    checks on the Water-3D batch)``."""
+    first batch of its train split; then :func:`parity_water3d_phase` and
+    :func:`parity_protein_phase`.  Returns ``(per model, and for the
+    Water-3D and protein runs, its launches and numbers, the edge kernels'
+    checks, the segment-sum's, the edge kernels' checks on the Water-3D
+    batch and on the protein batch)``."""
     import torch
 
     harness = script_module("torch_parity_nbody")
@@ -1897,18 +1908,7 @@ def parity_phase(tmp: str):
               f"evals of {n_eval // evals} batches: {best['seconds_per_epoch']:.4f} s per epoch, "
               f"median step {best['step_ms_median']:.3f} ms; train losses {log['loss_train']}, "
               f"test {log['loss']}; launches {launches} (expected {want})", flush=True)
-        check(written == [best, log] and {"epoch_index", "loss_valid", "loss_test",
-                                          "loss_train"} <= best.keys()
-              and sorted(log) == ["epochs", "loss", "loss_train"],
-              f"parity: {model}'s JSON is not the reference's [best, log]")
-        check(len(log["loss_train"]) == PARITY_EPOCHS and log["epochs"] == list(
-            range(hp["test_interval"], PARITY_EPOCHS + 1, hp["test_interval"])),
-              f"parity: {model} logged epochs {log['epochs']}")
-        losses = log["loss_train"] + log["loss"] + [best["loss_valid"], best["loss_test"]]
-        check(all(v == v and abs(v) < float("inf") for v in losses),
-              f"parity: {model} non-finite loss")
-        check(log["loss_train"][-1] < log["loss_train"][0],
-              f"parity: {model}'s train loss did not fall")
+        harness_run_checks(model, best, log, written, PARITY_EPOCHS, hp["test_interval"])
         check(launches == want, f"parity: {model} launch counts differ from the path's")
         out[model] = dict(launches=launches, seconds_per_epoch=best["seconds_per_epoch"],
                           step_ms_median=best["step_ms_median"], loss_test=best["loss_test"],
@@ -1922,7 +1922,8 @@ def parity_phase(tmp: str):
     kern = kernel_phase(g, torch.Generator().manual_seed(8), modes=(False,), tag="parity")
     seg = segsum_phase(g, torch.Generator().manual_seed(9), PARITY_EGNN_FORMS, tag="parity")
     out[PARITY_WATER3D], w_kern = parity_water3d_phase(tmp)
-    return out, kern, seg, w_kern
+    out[PARITY_PROTEIN], p_kern = parity_protein_phase(tmp)
+    return out, kern, seg, w_kern, p_kern
 
 
 def parity_water3d_phase(tmp: str):
@@ -1956,18 +1957,8 @@ def parity_water3d_phase(tmp: str):
           f"epoch, median step {best['step_ms_median']:.3f} ms; train losses "
           f"{log['loss_train']}, test {log['loss']}; launches {launches} (expected {want})",
           flush=True)
-    check(written == [best, log] and {"epoch_index", "loss_valid", "loss_test",
-                                      "loss_train"} <= best.keys()
-          and sorted(log) == ["epochs", "loss", "loss_train"],
-          "parity: Water-3D's JSON is not the reference's [best, log]")
-    check(len(log["loss_train"]) == PARITY_WATER3D_EPOCHS and log["epochs"] == list(
-        range(hp["test_interval"], PARITY_WATER3D_EPOCHS + 1, hp["test_interval"])),
-          f"parity: Water-3D logged epochs {log['epochs']}")
-    losses = log["loss_train"] + log["loss"] + [best["loss_valid"], best["loss_test"]]
-    check(all(v == v and abs(v) < float("inf") for v in losses),
-          "parity: Water-3D non-finite loss")
-    check(log["loss_train"][-1] < log["loss_train"][0],
-          "parity: Water-3D's train loss did not fall")
+    harness_run_checks("Water-3D", best, log, written, PARITY_WATER3D_EPOCHS,
+                       hp["test_interval"])
     check(launches == want, "parity: Water-3D launch counts differ from the path's")
     dtr = harness.load_datasets(torch.device("cuda"))[0][0]
     g = dtr.collate(list(range(hp["batch_size"])))
@@ -1980,6 +1971,74 @@ def parity_water3d_phase(tmp: str):
     return dict(launches=launches, seconds_per_epoch=best["seconds_per_epoch"],
                 step_ms_median=best["step_ms_median"], loss_test=best["loss_test"],
                 rows=g.num_nodes, real_edges=g.n_real_edges, empty_rows=empty), kern
+
+
+def harness_run_checks(tag: str, best: dict, log: dict, written, epochs: int,
+                       interval: int) -> None:
+    """The checks of a harness run: the reference's ``[best, log]`` written,
+    every epoch logged and an eval every ``interval``, finite losses, a
+    falling train loss."""
+    check(written == [best, log] and {"epoch_index", "loss_valid", "loss_test",
+                                      "loss_train"} <= best.keys()
+          and sorted(log) == ["epochs", "loss", "loss_train"],
+          f"parity: {tag}'s JSON is not the reference's [best, log]")
+    check(len(log["loss_train"]) == epochs and log["epochs"] == list(
+        range(interval, epochs + 1, interval)), f"parity: {tag} logged epochs {log['epochs']}")
+    losses = log["loss_train"] + log["loss"] + [best["loss_valid"], best["loss_test"]]
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          f"parity: {tag} non-finite loss")
+    check(log["loss_train"][-1] < log["loss_train"][0],
+          f"parity: {tag}'s train loss did not fall")
+
+
+def parity_protein_phase(tmp: str):
+    """Phase 12c: the protein harness (``scripts/torch_parity_protein.py::
+    run_port``: FastEGNN without gravity, the shared MMD draw at weight
+    0.5, f32) for ``PARITY_PROTEIN_EPOCHS`` epochs on the committed
+    synthetic AdK chain, with exact launches; then the f32 edge kernels
+    against their plain versions on the first batch of its train split (50
+    graphs of 60 atoms, their 10 Angstrom contacts).  Returns (its launches
+    and numbers, the edge kernels' checks)."""
+    import torch
+
+    harness = script_module("torch_parity_protein")
+    hp = harness.HP
+    t0 = time.perf_counter()
+    sets, _ = harness.load_datasets(torch.device("cuda"))
+    build_s = time.perf_counter() - t0
+    # the loop drops each split's short last batch
+    n_train = len(sets[0]) // hp["batch_size"]
+    evals = PARITY_PROTEIN_EPOCHS // hp["test_interval"]
+    n_eval = evals * (len(sets[1]) // hp["batch_size"] + len(sets[2]) // hp["batch_size"])
+    g = sets[0].collate(list(range(hp["batch_size"])))
+    del sets
+    path = f"{tmp}/parity_protein.json"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    best, log = harness.run_port(PARITY_PROTEIN_EPOCHS, path)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = expected_launches("FastEGNN", LAYERS, PARITY_PROTEIN_EPOCHS * n_train, n_eval)
+    with open(path) as f:
+        written = json.load(f)
+    print(f"[parity] protein, {PARITY_PROTEIN_EPOCHS} epochs of {n_train} train steps, "
+          f"{evals} evals of {n_eval // evals} batches (splits built in {build_s:.2f} s): "
+          f"{best['seconds_per_epoch']:.4f} s per epoch, median step "
+          f"{best['step_ms_median']:.3f} ms; train losses {log['loss_train']}, test "
+          f"{log['loss']}; launches {launches} (expected {want})", flush=True)
+    harness_run_checks("protein", best, log, written, PARITY_PROTEIN_EPOCHS,
+                       hp["test_interval"])
+    check(launches == want, "parity: protein launch counts differ from the path's")
+    empty = int((g.rowptr[1:] == g.rowptr[:-1]).sum())
+    print(f"[parity] protein batch of {hp['batch_size']} graphs: {g.num_nodes} nodes, "
+          f"{g.n_real_edges} real edges ({g.n_real_edges / g.num_nodes:.2f} per node), "
+          f"{empty} nodes with no edge in", flush=True)
+    kern = kernel_phase(g, torch.Generator().manual_seed(11), modes=(False,),
+                        tag="parity_protein")
+    return dict(launches=launches, seconds_per_epoch=best["seconds_per_epoch"],
+                step_ms_median=best["step_ms_median"], loss_test=best["loss_test"],
+                build_s=build_s, rows=g.num_nodes, real_edges=g.n_real_edges,
+                empty_rows=empty), kern
 
 
 def path_launches(paths, name: str) -> dict:
@@ -2058,7 +2117,7 @@ def main() -> int:
     print(f"[equivariance] phase took {phase_s['equivariance']:.2f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        parity, parity_kern, parity_seg, water3d_kern = parity_phase(tmp)
+        parity, parity_kern, parity_seg, water3d_kern, protein_kern = parity_phase(tmp)
     phase_s["parity"] = time.perf_counter() - t0
     print(f"[parity] phase took {phase_s['parity']:.2f} s", flush=True)
     parity_launches = {k: {m: parity[m]["launches"][k] for m in PARITY_RUNS} for k in KERNELS}
@@ -2089,6 +2148,8 @@ def main() -> int:
             "parity_launches": parity_launches[name],
             "parity_f32": parity_kern[(kind, "f32")],
             "parity_water3d_f32": water3d_kern[(kind, "f32")],
+            "parity_protein_launches": parity[PARITY_PROTEIN]["launches"][name],
+            "parity_protein_f32": protein_kern[(kind, "f32")],
         })
     entries.append({
         "name": "segment_sum", "route": "cuda",

@@ -12,11 +12,13 @@ Two stages, as in the JAX package:
    - fixed split counts 2481/827/863 scaled to shorter trajectories
      (``:54``);
    - frames (t, t+delta_frame), delta_frame=15 in the reference protein CLI;
-   - 10 Angstrom contact-graph edges (``:146-150``) then the shortest
-     ``(1-cutoff_rate)`` fraction (``:208-213``);
+   - ``contact_cutoff`` (10 Angstrom) contact-graph edges (``:146-150``)
+     then the shortest ``(1-cutoff_rate)`` fraction (``:208-213``), padded
+     to ``max_edges`` (the split's most, where not given);
    - node features [|v|, q / max(q)] (``:158-161``);
    - the test split's random rotation and translation (scaled by half the
-     box, ``:131-142``) from ``seed``;
+     box, ``:131-142``), each where ``test_rot`` / ``test_trans`` asks for
+     it, drawn in that order from ``seed``;
    - fibonacci-sphere virtual positions for VNEGNN (``:176-205``): each
      graph carries ``virtual_fibonacci`` [1, 3, C] when C > 1, and its
      batches ``GraphBatch.virtual_fibonacci`` [B, 3, C].
@@ -34,7 +36,7 @@ where MDAnalysis or the download is not available.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -42,8 +44,6 @@ from fastegnn_tpu_torch.data.batcher import GraphDataset
 from fastegnn_tpu_torch.graph import GraphSpec, pad_graph
 from fastegnn_tpu_torch.ops.neighbors import radius_graph_np, sort_cutoff_np
 from fastegnn_tpu_torch.ops.rotation import random_rotation
-
-CONTACT_CUTOFF = 10.0   # Angstrom, the contact graph's radius (reference dataset.py:146-150)
 
 
 def preprocess_adk(data_dir: str, out_path: str, backbone: bool = False) -> None:
@@ -167,7 +167,11 @@ class ProteinDataset(GraphDataset):
         cutoff_rate: float = 0.0,
         max_samples: int = int(1e8),
         delta_frame: int = 15,
+        contact_cutoff: float = 10.0,
+        test_rot: bool = True,
+        test_trans: bool = True,
         seed: int = 0,
+        max_edges: Optional[int] = None,
         with_local_edges: bool = False,
     ):
         data = np.load(npz_path)
@@ -190,12 +194,13 @@ class ProteinDataset(GraphDataset):
             loc_0 = pos[t].astype(np.float32)
             loc_t = pos[t + delta_frame].astype(np.float32)
             vel_0 = vel[t].astype(np.float32)
-            if partition == "test":
+            if partition == "test" and test_rot:
                 R = random_rotation(rng).astype(np.float32)
                 loc_0, loc_t, vel_0 = loc_0 @ R, loc_t @ R, vel_0 @ R
+            if partition == "test" and test_trans:
                 tr = (rng.standard_normal(3) * dims / 2).astype(np.float32)
                 loc_0, loc_t = loc_0 + tr, loc_t + tr
-            dst, src = radius_graph_np(loc_0, CONTACT_CUTOFF)
+            dst, src = radius_graph_np(loc_0, contact_cutoff)
             dst, src = sort_cutoff_np(dst, src, loc_0, cutoff_rate)
             d0 = np.linalg.norm(loc_0[dst] - loc_0[src], axis=1, keepdims=True)
             node_feat = np.concatenate(
@@ -216,7 +221,7 @@ class ProteinDataset(GraphDataset):
 
         spec = GraphSpec(
             max_nodes=pos.shape[1],
-            max_edges=max(r["dst"].shape[0] for r in raw),
+            max_edges=max_edges or max(r["dst"].shape[0] for r in raw),
             n_graphs=1, node_feat_dim=2, edge_attr_dim=2, node_attr_dim=1,
             virtual_channels=virtual_channels,
             max_local_edges=self._bonds.shape[0] if with_local_edges else 0)

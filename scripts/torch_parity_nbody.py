@@ -158,6 +158,34 @@ def paths(out_json: str):
             stem + "_ckpt")
 
 
+def draw_steps(net, opt, mmd: dict, draw_fn) -> dict:
+    """The loop's ``train_step_fn`` / ``eval_step_fn`` that hand each step
+    ``draw_fn(key, graph)`` as its MMD draw; none without ``draw_fn``."""
+    from fastegnn_tpu_torch.train.step import make_eval_step, make_train_step
+
+    if draw_fn is None:
+        return {}
+    train_step, eval_step = make_train_step(net, opt, **mmd), make_eval_step(net, **mmd)
+    return dict(train_step_fn=lambda g, key: train_step(g, draw=draw_fn(key, g)),
+                eval_step_fn=lambda g, key: eval_step(g, draw=draw_fn(key, g)))
+
+
+def write_result(best: dict, log: dict, out_json: str, device, **facts):
+    """Move the loop's telemetry into ``best`` as wall seconds, seconds per
+    epoch, median step and epochs run, add the device's line and ``facts``,
+    write ``[best, log]`` to ``out_json`` and return them."""
+    tel = log.pop("telemetry")
+    seconds = sum(t["seconds"] for t in tel)
+    best.update(time_cost=seconds, seconds_per_epoch=seconds / len(tel),
+                step_ms_median=statistics.median(t["step_ms_median"] for t in tel),
+                epochs_run=len(tel), **facts, device=device_line(device))
+    os.makedirs(os.path.dirname(out_json) or ".", exist_ok=True)
+    with open(out_json, "w") as f:
+        json.dump([best, log], f, indent=2)
+    print("PORT BEST:", json.dumps(best), flush=True)
+    return best, log
+
+
 def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *,
              data: str = DATA, name: str = NAME, model: str = MODEL, hp: dict = HP,
              n_workers: int = 1, state_dict=None, resume: bool = False):
@@ -194,17 +222,8 @@ def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *,
         early_stop=hp["early_stop"], max_epochs=epochs, seed=seed, shuffle=False,
         log_directory=log_dir, log_name=log_name, ckpt_directory=ckpt_dir,
         resume_from=last if resume else None, verbose=True)
-    tel = log.pop("telemetry")
-    seconds = sum(t["seconds"] for t in tel)
-    best.update(time_cost=seconds, seconds_per_epoch=seconds / len(tel),
-                step_ms_median=statistics.median(t["step_ms_median"] for t in tel),
-                epochs_run=len(tel), max_epochs=epochs, model=model, seed=seed,
-                device=device_line(device), data=draw)
-    os.makedirs(log_dir, exist_ok=True)
-    with open(out_json, "w") as f:
-        json.dump([best, log], f, indent=2)
-    print("PORT BEST:", json.dumps(best), flush=True)
-    return best, log
+    return write_result(best, log, out_json, device, max_epochs=epochs, model=model, seed=seed,
+                        data=draw)
 
 
 def main(argv=None):

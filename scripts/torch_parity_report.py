@@ -13,17 +13,21 @@ ratio to the JAX number against the band fixed before the runs
 The JAX wall times were taken on a TPU and are not quoted.
 
 The Water-3D matched experiment (``scripts/torch_parity_simulation.py``)
-has its JAX runs beside the port's, in ``{dir}/water3d_jax_s{seed}.json``
-(``scripts/parity_simulation.py --side jax --matched``, seeds 43-47, on a
-CPU), and is judged by two criteria that those JSONs alone fix
-(:func:`water3d_criteria`): (a) the port seeds' median best test MSE
-inside [min, max] of the JAX seeds'; (b) at each logged epoch up to
-``WATER3D["band_until"]`` the port seeds' median test MSE over the JAX
-seeds' median inside 1 +- the JAX seeds' own largest deviation from their
-median at those epochs, never tighter than ``WATER3D["band_floor"]``.
+and the protein one (``scripts/torch_parity_protein.py``) have their JAX
+runs beside the port's, in ``{dir}/{water3d|protein}_jax_s{seed}.json``
+(``scripts/parity_simulation.py --side jax --matched`` and
+``scripts/parity_protein_jax.py``, seeds 43-47, on a CPU), and each is
+judged by two criteria that those JSONs alone fix (:func:`seed_criteria`):
+(a) the port seeds' median best test MSE inside [min, max] of the JAX
+seeds'; (b) at each epoch up to ``band_until`` that every run logged, the
+port seeds' median test MSE over the JAX seeds' median inside 1 +- the JAX
+seeds' own largest deviation from their median at those epochs, never
+tighter than ``band_floor``.  The Water-3D port seeds trained from the JAX
+seeds' inits (``--init``) are set beside the same JAX seeds
+(:func:`jax_init_lines`).
 
     python scripts/torch_parity_report.py [--dir docs/parity_port] [--jax_dir docs/parity] \
-        [--water3d_jax_dir DIR]
+        [--seeds_jax_dir DIR]
 """
 
 from __future__ import annotations
@@ -58,11 +62,39 @@ EXPERIMENTS = (
          ref_json="parity100_torch.json"),
 )
 
-# extra_seeds: more runs a side, reported beside the criterion, which they
-# do not change
+# the experiments with their own JAX seeds beside the port's, in
+# {dir}/{prefix}_{jax|fastegnn}_s{seed}.json; extra_seeds: more runs a side,
+# reported beside the criterion, which they do not change
 WATER3D = dict(title="Water-3D matched protocol, FastEGNN (gravity, per-graph MMD)",
+               prefix="water3d", subject="Water-3D",
                seeds=(43, 44, 45, 46, 47), cap=700, band_until=200, band_floor=0.05,
-               marks=(100, 200, 300, 400, 500, 600, 700), extra_seeds=(48, 49, 50, 51, 52))
+               marks=(100, 200, 300, 400, 500, 600, 700), extra_seeds=(48, 49, 50, 51, 52),
+               intro=("`scripts/torch_parity_simulation.py` against the unchanged "
+                      "`scripts/parity_simulation.py --side jax --matched` (JAX on a CPU): the "
+                      "JAX script's synthetic trio (4 trajectories of 200 particles and 300 "
+                      "frames per split, seed 7) replayed through one sampling protocol, "
+                      "`water3d_protocol.json` beside this file (60 samples per split; batch 10, "
+                      "sigma 1.0, weight 0.01, H 64, C 3, L 4, cutoff 0.0, `delta_t` 20, no "
+                      "shuffle, an eval every 5 epochs, no early stop). Each side's seeds set "
+                      "its own init and MMD draws."))
+# (b) at every epoch that all ten runs logged: band_until is the cap
+PROTEIN = dict(title="Protein, synthetic AdK chain, FastEGNN (shared MMD draw)",
+               prefix="protein", subject="the synthetic AdK chain",
+               seeds=(43, 44, 45, 46, 47), cap=150, band_until=150, band_floor=0.05,
+               marks=(25, 50, 100, 150),
+               intro=("`scripts/torch_parity_protein.py` against "
+                      "`scripts/parity_protein_jax.py`, the body of the unchanged "
+                      "`scripts/parity_protein.py --side jax` with the seed set (JAX on a CPU): "
+                      "`data/protein_parity/synthetic_adk.npz` (60 atoms, 4187 frames, seed 11; "
+                      "2481 / 827 / 863 samples, dataset seeds 43 / 44 / 45, the test split "
+                      "rotated and translated), batch 50, sigma 1.0, weight 0.5, H 64, C 3, L 4, "
+                      "cutoff 0.0, `delta_frame` 15, 10 Angstrom contacts, one MMD draw shared "
+                      "by the batch, no shuffle, an eval every 5 epochs, early stop after 100. "
+                      "Each side's seeds set its own init and MMD draws."))
+# the Water-3D port seeds trained from the JAX seeds' own inits
+# (water3d_jax_init_s{seed}.npz), in {dir}/water3d_fastegnn_jaxinit_s{seed}.json;
+# the plateau breaks at the first logged test MSE under this
+PLATEAU_BREAK = 0.8e-3
 
 
 def load(path):
@@ -94,11 +126,12 @@ def equal_epoch_rows(logs, marks):
     return [(e, [mse_at(log, e) for log in logs]) for e in marks]
 
 
-def water3d_extra_lines(root: str, exp: dict, jax_root=None):
+def extra_seed_lines(root: str, exp: dict, jax_root=None):
     """The best test MSE over every seed run, the criterion's and
     ``exp["extra_seeds"]``, on each side: a line, or none without extra runs."""
     seeds = exp["seeds"] + exp.get("extra_seeds", ())
-    bests = {side: [r[0]["loss_test"] for r in (load(water3d_path(d, side, s)) for s in seeds)
+    bests = {side: [r[0]["loss_test"] for r in (load(seeds_path(d, exp["prefix"], side, s))
+                                                 for s in seeds)
                     if r is not None]
              for side, d in (("jax", jax_root or root), ("fastegnn", root))}
     if all(len(v) <= len(exp["seeds"]) for v in bests.values()):
@@ -164,12 +197,13 @@ def experiment_lines(exp: dict, root: str, jax_dir: str):
     return lines + [""]
 
 
-def water3d_path(root: str, side: str, seed: int) -> str:
-    """A Water-3D run's JSON: ``side`` is ``jax`` or ``fastegnn`` (the port)."""
-    return os.path.join(root, f"water3d_{side}_s{seed}.json")
+def seeds_path(root: str, prefix: str, side: str, seed: int) -> str:
+    """A seeded run's JSON: ``prefix`` is the experiment's, ``side`` is
+    ``jax`` or ``fastegnn`` (the port)."""
+    return os.path.join(root, f"{prefix}_{side}_s{seed}.json")
 
 
-def water3d_band(jax_logs, until: int, floor: float):
+def seed_band(jax_logs, until: int, floor: float):
     """``(half width, epoch)`` of criterion (b)'s band: the JAX seeds'
     largest relative deviation from their median test MSE at an epoch all
     of them logged up to ``until``, and where it lies; at least ``floor``."""
@@ -185,13 +219,13 @@ def water3d_band(jax_logs, until: int, floor: float):
     return half, at
 
 
-def water3d_criteria(jax_runs, port_runs, until: int, floor: float) -> dict:
+def seed_criteria(jax_runs, port_runs, until: int, floor: float) -> dict:
     """Criteria (a) and (b) over ``[(best, log)]`` of the JAX and the port
     seeds, with their numbers."""
     jax_best = [b["loss_test"] for b, _ in jax_runs]
     port_med = statistics.median(b["loss_test"] for b, _ in port_runs)
     lo, hi = min(jax_best), max(jax_best)
-    half, half_at = water3d_band([log for _, log in jax_runs], until, floor)
+    half, half_at = seed_band([log for _, log in jax_runs], until, floor)
     rows = []
     for e in jax_runs[0][1]["epochs"]:
         if e > until:
@@ -207,23 +241,17 @@ def water3d_criteria(jax_runs, port_runs, until: int, floor: float) -> dict:
                 b=bool(rows) and all(ok for _, _, ok in rows))
 
 
-def water3d_lines(root: str, exp: dict = WATER3D, jax_root=None):
-    lines = [f"## {exp['title']} (cap {exp['cap']} epochs)", "",
-             "`scripts/torch_parity_simulation.py` against the unchanged "
-             "`scripts/parity_simulation.py --side jax --matched` (JAX on a CPU): the JAX "
-             "script's synthetic trio (4 trajectories of 200 particles and 300 frames per split, "
-             "seed 7) replayed through one sampling protocol, "
-             "`water3d_protocol.json` beside this file (60 samples per split; batch 10, "
-             "sigma 1.0, weight 0.01, H 64, C 3, L 4, cutoff 0.0, `delta_t` 20, no shuffle, an "
-             "eval every 5 epochs, no early stop). Each side's seeds set its own init and MMD "
-             "draws.", ""]
-    jax = {s: load(water3d_path(jax_root or root, "jax", s)) for s in exp["seeds"]}
+def seeds_lines(root: str, exp: dict, jax_root=None):
+    """An experiment with its own JAX seeds: the criteria fixed from them, each
+    run, the verdicts and the equal-epoch rows."""
+    lines = [f"## {exp['title']} (cap {exp['cap']} epochs)", "", exp["intro"], ""]
+    jax = {s: load(seeds_path(jax_root or root, exp["prefix"], "jax", s)) for s in exp["seeds"]}
     jax = {s: r for s, r in jax.items() if r is not None}
-    port = {s: load(water3d_path(root, "fastegnn", s)) for s in exp["seeds"]}
+    port = {s: load(seeds_path(root, exp["prefix"], "fastegnn", s)) for s in exp["seeds"]}
     port = {s: r for s, r in port.items() if r is not None}
     if not jax:
         return lines + ["*(no JAX run yet)*", ""]
-    half, half_at = water3d_band([log for _, log in jax.values()], exp["band_until"],
+    half, half_at = seed_band([log for _, log in jax.values()], exp["band_until"],
                                  exp["band_floor"])
     jax_best = [b["loss_test"] for b, _ in jax.values()]
     lines += [
@@ -251,7 +279,7 @@ def water3d_lines(root: str, exp: dict = WATER3D, jax_root=None):
                 f"{_num(b.get('step_ms_median'), 3)} | {b.get('device', jax_device)} |")
     lines.append("")
     if port:
-        c = water3d_criteria(list(jax.values()), list(port.values()), exp["band_until"],
+        c = seed_criteria(list(jax.values()), list(port.values()), exp["band_until"],
                              exp["band_floor"])
         worst = max(c["b_rows"], key=lambda r: abs(r[1] - 1.0)) if c["b_rows"] else None
         missing = [s for s in exp["seeds"] if s not in port]
@@ -265,11 +293,12 @@ def water3d_lines(root: str, exp: dict = WATER3D, jax_root=None):
             + f"{sum(not ok for _, _, ok in c['b_rows'])} outside [{1 - c['half']:.4f}, "
             f"{1 + c['half']:.4f}]: " + ("**pass**" if c["b"] else "**fail**") + ".",
             "", "In plain words: " + (
-                "both criteria pass; the port converges on Water-3D as the JAX package does."
+                f"both criteria pass; the port converges on {exp['subject']} as the JAX "
+                "package does."
                 if c["a"] and c["b"] else
                 "the port fails " + " and ".join(k for k in ("(a)", "(b)")
                                                  if not c[k[1]]) + "."),
-            ""] + water3d_extra_lines(root, exp, jax_root) + [
+            ""] + extra_seed_lines(root, exp, jax_root) + [
             "Port / JAX median test MSE at the logged epochs <= "
             f"{exp['band_until']}:", "",
             "| epoch | ratio | in band |", "|---|---|---|"]
@@ -289,12 +318,60 @@ def water3d_lines(root: str, exp: dict = WATER3D, jax_root=None):
     return lines + [""]
 
 
+def plateau_break(log, below: float = PLATEAU_BREAK):
+    """The first logged epoch whose test MSE is under ``below``, or None."""
+    return next((e for e, v in zip(log["epochs"], log["loss"]) if v < below), None)
+
+
+def jax_init_lines(root: str, exp: dict = WATER3D, jax_root=None):
+    """The Water-3D port seeds trained from the JAX seeds' inits, each beside
+    the same JAX seed and the port seed from its own init; their median
+    against criterion (a)'s range, which they leave as it is."""
+    lines = [f"## {exp['title']}, the port from the JAX inits (cap {exp['cap']} epochs)", "",
+             "Each port seed starts from the weights the same JAX seed starts from "
+             "(`water3d_jax_init_s<seed>.npz` beside this file, the JAX harness's init "
+             "exported on the CPU; `scripts/torch_parity_simulation.py --init`); its MMD "
+             "draws stay the port's own. This separates the init from the numerics; "
+             f"criterion (a) above is not changed by it. Plateau break: the first logged "
+             f"epoch with test MSE under {PLATEAU_BREAK:g}.", ""]
+    rows = []
+    for s in exp["seeds"]:
+        runs = [load(seeds_path(jax_root or root, exp["prefix"], "jax", s)),
+                load(os.path.join(root, f"{exp['prefix']}_fastegnn_jaxinit_s{s}.json")),
+                load(seeds_path(root, exp["prefix"], "fastegnn", s))]
+        if runs[1] is not None:
+            rows.append((s, runs))
+    if not rows:
+        return lines + ["*(no run of the port from the JAX inits yet)*", ""]
+    lines += ["| seed | JAX best | JAX break | port from JAX init best | its break | "
+              "port from own init best | its break | device |",
+              "|---|---|---|---|---|---|---|---|"]
+    for s, runs in rows:
+        cells = []
+        for r in runs:
+            cells += ["—", "—"] if r is None else [f"{r[0]['loss_test']:.6f}",
+                                                   str(plateau_break(r[1]) or "—")]
+        lines.append(f"| {s} | " + " | ".join(cells) + f" | {runs[1][0]['device']} |")
+    jax_best = [r[0]["loss_test"] for r in (load(seeds_path(jax_root or root, exp["prefix"],
+                                                            "jax", s)) for s in exp["seeds"])
+                if r is not None]
+    med = statistics.median(runs[1][0]["loss_test"] for _, runs in rows)
+    lo, hi = min(jax_best), max(jax_best)
+    missing = [s for s in exp["seeds"] if s not in dict(rows)]
+    lines += ["", f"- port from the JAX inits, median best test MSE over seeds "
+              f"{[s for s, _ in rows]}: **{med:.6f}**"
+              + (f" (seeds {missing} not run)" if missing else "") + ", "
+              + ("inside" if lo <= med <= hi else "**outside**")
+              + f" the JAX range [{lo:.6f}, {hi:.6f}].", ""]
+    return lines
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dir", default=os.path.join(REPO, "docs", "parity_port"))
     p.add_argument("--jax_dir", default=os.path.join(REPO, "docs", "parity"))
-    p.add_argument("--water3d_jax_dir", default=None,
-                   help="the Water-3D JAX JSONs' directory (default --dir)")
+    p.add_argument("--seeds_jax_dir", default=None,
+                   help="the Water-3D and protein JAX JSONs' directory (default --dir)")
     a = p.parse_args(argv)
     lines = [
         "# Converged-MSE parity of the PyTorch / CUDA port against the JAX package",
@@ -308,13 +385,15 @@ def main(argv=None):
         "Their criterion, fixed before the runs: the median over seeds of the port's",
         f"best test MSE, over the JAX number, in [{BAND[0]}, {BAND[1]}].",
         "Their JAX numbers come from `docs/parity/`; its wall times were taken on a",
-        "TPU and are not quoted.  Water-3D, the last section, has its own JAX runs",
-        "and criterion.",
+        "TPU and are not quoted.  Water-3D and protein, the last sections, have their",
+        "own JAX runs and criteria.",
         "",
     ]
     for exp in EXPERIMENTS:
         lines += experiment_lines(exp, a.dir, a.jax_dir)
-    lines += water3d_lines(a.dir, jax_root=a.water3d_jax_dir)
+    lines += seeds_lines(a.dir, WATER3D, a.seeds_jax_dir)
+    lines += jax_init_lines(a.dir, WATER3D, a.seeds_jax_dir)
+    lines += seeds_lines(a.dir, PROTEIN, a.seeds_jax_dir)
     os.makedirs(a.dir, exist_ok=True)
     with open(os.path.join(a.dir, "PARITY.md"), "w") as f:
         f.write("\n".join(lines))

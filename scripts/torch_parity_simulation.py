@@ -24,7 +24,10 @@ Usage, from the repository root (the card unless ``--platform cpu``)::
 
 Beside ``--out`` the run keeps its live log (``*_live.json``) and the
 loop's checkpoint of its last epoch (``*_ckpt/last``); ``--resume`` goes
-on from that checkpoint as the uninterrupted run would have.
+on from that checkpoint as the uninterrupted run would have.  ``--init
+docs/parity_port/water3d_jax_init_s43.npz`` starts from the weights the
+JAX harness's seed 43 starts from (:func:`load_jax_init`) in place of the
+port's seeded init; the seed still sets the MMD draws.
 ``scripts/torch_parity_water3d_runs.sh`` starts the five seeds together on
 one card.
 """
@@ -35,7 +38,6 @@ import argparse
 import hashlib
 import json
 import os
-import statistics
 import sys
 
 import numpy as np
@@ -45,7 +47,7 @@ for path in (REPO, os.path.dirname(os.path.abspath(__file__))):
     if path not in sys.path:
         sys.path.insert(0, path)
 
-from torch_parity_nbody import device_line, paths  # noqa: E402
+from torch_parity_nbody import draw_steps, paths, write_result  # noqa: E402
 
 PROTOCOL_PATH = os.path.join(REPO, "docs", "parity_port", "water3d_protocol.json")
 # scripts/parity_simulation.py's HP and GRAVITY, with --matched's early stop
@@ -116,6 +118,22 @@ def load_datasets(device, hp: dict = HP, protocol_path: str = PROTOCOL_PATH):
     return sets, hashlib.sha256(json.dumps(proto).encode()).hexdigest()[:16]
 
 
+def load_jax_init(path: str) -> dict:
+    """The port's ``state_dict`` of a JAX FastEGNN param tree saved flat in
+    an ``.npz`` (one array per ``/``-joined key path)."""
+    from fastegnn_tpu_torch.utils.weights import state_dict_from_jax_params
+
+    tree = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = flat[key]
+    return state_dict_from_jax_params(tree)
+
+
 def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *, hp: dict = HP,
              protocol_path: str = PROTOCOL_PATH, state_dict=None, draw_fn=None,
              resume: bool = False):
@@ -130,7 +148,6 @@ def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *, hp: d
     from fastegnn_tpu_torch.models import get_model
     from fastegnn_tpu_torch.train.loop import train
     from fastegnn_tpu_torch.train.optim import torch_adam
-    from fastegnn_tpu_torch.train.step import make_eval_step, make_train_step
     from fastegnn_tpu_torch.utils.seed import fix_seed
 
     device = training_device(platform)
@@ -144,11 +161,6 @@ def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *, hp: d
     opt = torch_adam(net.parameters(), hp["lr"], hp["wd"])
     mmd = dict(sigma=hp["sigma"], weight=hp["weight"], sample=hp["sample"],
                per_graph_sampling=True)
-    steps = {}
-    if draw_fn is not None:
-        train_step, eval_step = make_train_step(net, opt, **mmd), make_eval_step(net, **mmd)
-        steps = dict(train_step_fn=lambda g, key: train_step(g, draw=draw_fn(key, g)),
-                     eval_step_fn=lambda g, key: eval_step(g, draw=draw_fn(key, g)))
     log_dir, log_name, ckpt_dir = paths(out_json)
     last = os.path.join(ckpt_dir, "last")
     if resume and not os.path.exists(last):
@@ -157,18 +169,10 @@ def run_port(epochs: int, out_json: str, platform=None, seed: int = 43, *, hp: d
         net, opt, dtr, dva, dte, batch_size=hp["batch_size"], **mmd,
         test_interval=hp["test_interval"], early_stop=hp["early_stop"], max_epochs=epochs,
         seed=seed, shuffle=False, log_directory=log_dir, log_name=log_name,
-        ckpt_directory=ckpt_dir, resume_from=last if resume else None, verbose=True, **steps)
-    tel = log.pop("telemetry")
-    seconds = sum(t["seconds"] for t in tel)
-    best.update(time_cost=seconds, seconds_per_epoch=seconds / len(tel),
-                step_ms_median=statistics.median(t["step_ms_median"] for t in tel),
-                epochs_run=len(tel), max_epochs=epochs, model="FastEGNN", seed=seed,
-                device=device_line(device), protocol_sha256=proto_sha)
-    os.makedirs(log_dir, exist_ok=True)
-    with open(out_json, "w") as f:
-        json.dump([best, log], f, indent=2)
-    print("PORT BEST:", json.dumps(best), flush=True)
-    return best, log
+        ckpt_directory=ckpt_dir, resume_from=last if resume else None, verbose=True,
+        **draw_steps(net, opt, mmd, draw_fn))
+    return write_result(best, log, out_json, device, max_epochs=epochs, model="FastEGNN",
+                        seed=seed, protocol_sha256=proto_sha)
 
 
 def main(argv=None):
@@ -181,9 +185,13 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=43)
     p.add_argument("--resume", action="store_true",
                    help="go on from the last checkpoint beside --out")
+    p.add_argument("--init", type=str, default=None,
+                   help="start from this JAX init (.npz, see load_jax_init) in place of the "
+                        "seeded one")
     a = p.parse_args(argv)
     out = a.out or os.path.join(REPO, "logs", "parity_port", f"water3d_fastegnn_s{a.seed}.json")
-    run_port(a.epochs, out, a.platform, a.seed, resume=a.resume)
+    run_port(a.epochs, out, a.platform, a.seed, resume=a.resume,
+             state_dict=None if a.init is None else load_jax_init(a.init))
 
 
 if __name__ == "__main__":

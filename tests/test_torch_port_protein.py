@@ -48,15 +48,25 @@ def test_fibonacci_sphere_is_the_jax_one():
                                atol=1e-6)
 
 
+# the JAX signature's options: no test rotation (the translation draw moves
+# up), no test translation, and a narrower contact graph padded to a given
+# edge capacity (50 x 49, every ordered pair)
+OPTIONS = {"defaults": {}, "no_rot": dict(test_rot=False), "no_trans": dict(test_trans=False),
+           "cutoff_8_max_edges": dict(contact_cutoff=8.0, max_edges=50 * 49)}
+
+
+@pytest.mark.parametrize("options", list(OPTIONS))
 @pytest.mark.parametrize("partition", SPLITS)
 @pytest.mark.parametrize("channels,cutoff_rate", [(3, 0.5), (1, 0.0)])
-def test_splits_are_the_jax_arrays_exactly(npz, partition, channels, cutoff_rate):
+def test_splits_are_the_jax_arrays_exactly(npz, partition, channels, cutoff_rate, options):
     opts = dict(OPTS, partition=partition, virtual_channels=channels,
-                cutoff_rate=cutoff_rate, max_samples=6)
+                cutoff_rate=cutoff_rate, max_samples=6, **OPTIONS[options])
     jds = jprot.ProteinDataset(npz, **opts)
     pds = pprot.ProteinDataset(npz, device="cpu", **opts)
     assert jds.spec.max_nodes == pds.spec.max_nodes == 50
     assert jds.spec.max_edges == pds.spec.max_edges
+    if "max_edges" in opts:
+        assert pds.spec.max_edges == opts["max_edges"]
     assert len(jds) == len(pds) == 6
     for a, b in zip(jds.graphs, pds.graphs):
         assert a.keys() == b.keys()
