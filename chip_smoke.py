@@ -74,7 +74,14 @@ Phases, in order; any failure raises and exits non-zero before the last line:
    first batch of its train split the data-parallel path ``[dp]``
    (``dp_phase``: two gloo ranks on the card, each on its half, against
    one process on the whole batch; a one-rank NCCL group's DP step against
-   the plain step with the MMD term on, both timed); then the
+   the plain step with the MMD term on, both timed); then ``[options]``
+   (``options_phase``): the constructor options no CLI sets at H=64, C=3,
+   L=4, FastEGNN with ``residual=False`` and the charges as node
+   attributes in f32 and in bf16, VNEGNN and FastSchNet with both, FastTFN
+   with ``residual=False``: each on [small]'s batch against the CPU (1e-4
+   f32, 2e-2 bf16), then 3 train steps on that batch with exact launch
+   counts and finite losses; then the f32 edge kernels and FastSchNet's
+   segment-sum forms against their plain versions on it; then the
    N-body CLI's ``run_training`` trains on it at ``run_nbody.sh``'s
    configuration (f32, batch 100, ``--cutoff_rate 0.5``, sigma 1.5, weight
    0.01, seed 43, the shared MMD draw) for 2 epochs with exact launch
@@ -136,7 +143,9 @@ Phases, in order; any failure raises and exits non-zero before the last line:
 
 Phases 6 (``[gp]``, ``[scaling]``) and 9-12 print their seconds.  Output: one JSON line
 ``{"kernels": [...]}`` (each kernel with its launches on every path,
-``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[parity]``'s as
+``[dp]``'s as ``nbody_dp_launches`` (rank 0's), ``[options]``'s over
+its runs as ``nbody_options_launches`` and its checks as ``options_f32``
+and ``options_FastSchNet_forms``, ``[parity]``'s as
 ``parity_launches`` (per model, and the Water-3D and protein runs'; the
 protein run's also as ``parity_protein_launches``), ``[gp]``'s as
 ``gp_launches`` (rank 0's) and ``gp_nccl1_launches``, the edge kernels'
@@ -248,6 +257,17 @@ TFN_NF = 32
 SE3 = "se3_transformer"
 SMALL_TFN_FAMILY = (SE3, "pooled TFN", "pooled SE3Transformer")
 NBODY_BASELINES = ("EGNN", "GNN", "RF", "Linear", "SchNet")
+# [options]: the constructor options no CLI sets, each model with those it
+# has (residual=False, and the N-body charges as the node attribute), as
+# (tag, model, dtype, options); OPTION_STEPS train steps on the [nbody]
+# cell's first train batch
+OPTIONS = dict(residual=False, node_attr_dim=1)
+OPTION_RUNS = (("FastEGNN f32", "FastEGNN", "float32", OPTIONS),
+               ("FastEGNN bf16", "FastEGNN", "bfloat16", OPTIONS),
+               ("VNEGNN", "VNEGNN", "float32", OPTIONS),
+               ("FastSchNet", "FastSchNet", "float32", OPTIONS),
+               ("FastTFN", "FastTFN", "float32", dict(residual=False)))
+OPTION_STEPS = 3
 EQUIVARIANT_BASELINES = ("EGNN", "RF", "Linear", "SchNet")
 # depths at the CLIs' configuration where it is not LAYERS: SchNet's 16
 # interactions (whatever --num_layer says), EGHN's 3 EGNN layers per block
@@ -597,7 +617,8 @@ def small_batch(model: str, tmp: str):
                           with_local_edges=True).collate([0, 1])
 
 
-def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGNN"):
+def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGNN",
+                      options=None):
     """Phase 3: the model on the card against the model on the CPU: f32
     within 1e-4, or bf16 (FastEGNN's fused layer only) within 2e-2 of each
     output's largest value; every output (coordinates, virtual coordinates,
@@ -605,11 +626,13 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     model without gravity or attention drops them; SchNet and EGHN run at
     ``SMALL_DEPTH``.  DimeNet's zero-initialised last linears are drawn
     afresh and scaled so that its largest output is 1: the basis near d = 0
-    makes it ~1e7 on this graph, where 1e-4 would be below f32 rounding."""
+    makes it ~1e7 on this graph, where 1e-4 would be below f32 rounding.
+    ``options`` ([options]): constructor arguments no CLI passes, given to
+    the model's constructor beside the keyword arguments it takes."""
     import numpy as np
     import torch
 
-    from fastegnn_tpu_torch.models import get_model
+    from fastegnn_tpu_torch.models import MODEL_KWARGS, MODEL_REGISTRY
     from fastegnn_tpu_torch.train.loss import masked_mse
     from fastegnn_tpu_torch.train.step import prediction
 
@@ -620,13 +643,15 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     if model in SMALL_TFN_FAMILY:
         gpu, cpu = (tfn_family_model(model, device, gen) for device in ("cuda", "cpu"))
     else:
-        # get_model drops the keyword arguments a model does not take
+        # the keyword arguments the model takes (as get_model keeps them),
+        # and the options no CLI passes
         kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=2,
                   gravity=(0.0, -1.0, 0.0), attention=attention,
                   compute_dtype=torch.bfloat16 if bf16 else torch.float32,
                   num_interactions=2, layer_per_block=2, layer_pooling=2, num_blocks=2)
-        gpu = get_model(model, 2, 2, device="cuda", generator=gen, **kw)
-        cpu = get_model(model, 2, 2, device="cpu", **kw)
+        kw = {k: v for k, v in kw.items() if k in MODEL_KWARGS[model]} | (options or {})
+        gpu = MODEL_REGISTRY[model](2, 2, device="cuda", generator=gen, **kw)
+        cpu = MODEL_REGISTRY[model](2, 2, device="cpu", **kw)
     if model in TRIPLET_MODELS:
         with torch.no_grad():
             lins = [b.lin.weight for b in gpu.output_blocks]
@@ -676,7 +701,7 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
     worst = max(rel, key=rel.get)
     err_g = rel[worst]
     layer = f"{model}, " + ("attention" if attention else "fused" if model == "FastEGNN"
-                            else "f32")
+                            else "f32") + (f", {options}" if options else "")
     tol = 2e-2 if bf16 else 1e-4
     mode = "bf16 (coord, virtual rel)" if bf16 else "f32"
     print(f"[small] card vs CPU, {gc.num_nodes} nodes, depth {depth}, {mode}, {layer} layer: "
@@ -684,6 +709,7 @@ def small_model_phase(attention: bool, bf16: bool = False, model: str = "FastEGN
           f"{worst}) {err_g:.3e} (tol {tol:g}); launches {launches}", flush=True)
     check(np.isfinite(errs + [err_g]).all(), "small: bad output")
     check(max(errs + [err_g]) <= tol, "small: card and CPU disagree")
+    return dict(coord=errs[0], other_outputs=errs[1:], grad_rel=err_g, tol=tol)
 
 
 def tfn_family_model(kind: str, device: str, generator):
@@ -1731,6 +1757,66 @@ def scaling_phase() -> dict:
     return dict(runs=runs, launches=launches, table=table)
 
 
+def options_phase(dtr, batch_size: int) -> tuple:
+    """[options]: the constructor options no CLI sets (``OPTION_RUNS``) at
+    H=64, C=3, L=4.  For each, the model on the card against the model on
+    the CPU on [small]'s batch (``small_model_phase``), then
+    ``OPTION_STEPS`` train steps on the first batch of the N-body train
+    split (the N-body CLI's loss: the shared-draw MMD for the Fast* family,
+    the MSE alone for VNEGNN; the charges are its node attribute), each
+    timed up to a synchronize, with exact launch counts and finite losses;
+    then the f32 edge kernels and FastSchNet's segment-sum forms against
+    their plain versions on that batch.  Returns ``(launches over the
+    runs, kernel checks, numbers)``."""
+    import torch
+
+    from fastegnn_tpu_torch.models import MMD_MODELS, MODEL_REGISTRY
+    from fastegnn_tpu_torch.train.optim import torch_adam
+    from fastegnn_tpu_torch.train.step import make_train_step
+
+    g = dtr.collate(list(range(batch_size)))
+    check(g.node_attr is not None and g.node_attr.shape == (g.num_nodes, 1),
+          "options: the N-body batch has no charges")
+    numbers, total = {}, dict.fromkeys(KERNELS, 0)
+    for tag, model, dtype, options in OPTION_RUNS:
+        bf16 = dtype == "bfloat16"
+        small = small_model_phase(attention=False, bf16=bf16, model=model, options=options)
+        kw = dict(hidden=HIDDEN, virtual_channels=CHANNELS, n_layers=LAYERS, **options)
+        if bf16:
+            kw["compute_dtype"] = torch.bfloat16
+        net = MODEL_REGISTRY[model](2, 2, device="cuda",
+                                    generator=torch.Generator().manual_seed(43), **kw)
+        opt = torch_adam(net.parameters(), 5e-4, 1e-12)
+        step = make_train_step(net, opt, sigma=1.5, weight=0.01, sample=3,
+                               per_graph_sampling=False, use_mmd=model in MMD_MODELS,
+                               generator=torch.Generator(device="cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(OPTION_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(g)["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        want = expected_launches(model, LAYERS, OPTION_STEPS, 0)
+        print(f"[options] {tag} {options}: {OPTION_STEPS} train steps on {g.num_nodes} nodes, "
+              f"{g.n_real_edges} edges: step ms {[f'{t:.3f}' for t in times]}, losses "
+              f"{losses}; launches {launches} (expected {want})", flush=True)
+        check(launches == want, f"options {tag}: launch counts differ from the path's")
+        check(all(v == v and abs(v) < float("inf") for v in losses),
+              f"options {tag}: non-finite loss")
+        for k in KERNELS:
+            total[k] += launches[k]
+        numbers[tag] = dict(options=options, dtype=dtype, launches=launches, step_ms=times,
+                            losses=losses, small=small)
+        del step, opt, net
+        torch.cuda.empty_cache()
+    kern = kernel_phase(g, torch.Generator().manual_seed(9), modes=(False,), tag="options")
+    kern["FastSchNet forms"] = segsum_phase(g, torch.Generator().manual_seed(10),
+                                            SCHNET_FORMS, tag="options")
+    return total, kern, numbers
+
+
 def nbody_phase(tmp: str):
     """Phase 8: the N-body CLI (``run_nbody.sh``'s configuration) on
     trajectories written by the port's generator with a worker per CPU,
@@ -1772,10 +1858,14 @@ def nbody_phase(tmp: str):
     t0 = time.perf_counter()
     dp = dp_phase(tmp, sets[0], args.batch_size)
     print(f"[dp] phase took {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    options = options_phase(sets[0], args.batch_size)
+    print(f"[options] phase took {time.perf_counter() - t0:.2f} s", flush=True)
     runs = each_model("nbody", parse, sets,
                       ("FastEGNN",) + NEW_MODELS + NBODY_BASELINES + ZOO + ("TFN",))
     runs["FastEGNN"][2].update(generate_s=gen_s, cpus=os.cpu_count())
     runs["dp"] = dp
+    runs["options"] = options
     runs[SE3] = se3_transformer_phase(f"nbody {SE3}", sets, args.batch_size)
     return runs, collate
 
@@ -2138,6 +2228,7 @@ def main() -> int:
                for p in ("nbody", "protein")},
             **{f"{p}_VNEGNN_f32": paths[p]["VNEGNN"][1][(kind, "f32")]
                for p in ("nbody", "protein")},
+            "options_f32": paths["nbody"]["options"][1][(kind, "f32")],
             **path_launches(paths, name),
             "gp_launches": gp["launches"][name], "gp_nccl1_launches": gp["nccl1_launches"][name],
             "gp_table_f32": gp["table"][(kind, "f32")],
@@ -2169,6 +2260,7 @@ def main() -> int:
         "forms": {k: v for k, v in seg.items() if k != "dst f32"},
         **{f"{p}_{m}_forms": run[1] for p in ("nbody", "protein")
            for m, run in paths[p].items() if m in PATH_FORMS},
+        "options_FastSchNet_forms": paths["nbody"]["options"][1]["FastSchNet forms"],
     })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "M_edge_messages_per_s": rate, "variant_step_ms": var_step_ms,

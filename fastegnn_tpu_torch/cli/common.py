@@ -9,9 +9,9 @@ EGHN needs a dataset with bond edges (the protein CLI's); its cut loss is
 not added to the loss.  DimeNet and DimeNet++ train on the splits wrapped
 in ``TripletDataset``, whose batches carry their triplet tables, as the JAX
 CLI wraps them.  ``--model MLP`` raises, as the JAX CLI fails on it:
-``FullMLP`` takes an array, not a graph batch.  What the port does not have
-raises instead of falling back: a ``--compute_dtype bfloat16`` for a model
-without a bf16 path (the JAX CLI drops it quietly).
+``FullMLP`` takes an array, not a graph batch.  ``--compute_dtype
+bfloat16`` with a model that has no bf16 path (all but FastEGNN) trains it
+in float32, as the JAX CLI does, and prints a line that says so.
 ``--platform`` names the port's device: absent means the CUDA card,
 ``cpu`` asks for the CPU.
 
@@ -192,7 +192,8 @@ def run_training(args, dataset_train, dataset_valid, dataset_test,
 
 def _run_training(args, dataset_train, dataset_valid, dataset_test, per_graph_sampling,
                   gravity, mesh_d: int, mesh_g: int) -> Training:
-    from fastegnn_tpu_torch.models import MMD_MODELS, TRIPLET_MODELS, TripletDataset, get_model
+    from fastegnn_tpu_torch.models import (
+        MMD_MODELS, TRIPLET_MODELS, TripletDataset, computes_in_float32_only, get_model)
     from fastegnn_tpu_torch.train.loop import train
     from fastegnn_tpu_torch.train.optim import torch_adam
     from fastegnn_tpu_torch.utils.seed import fix_seed
@@ -212,13 +213,17 @@ def _run_training(args, dataset_train, dataset_valid, dataset_test, per_graph_sa
     if args.model in TRIPLET_MODELS:
         dataset_train, dataset_valid, dataset_test = (
             TripletDataset(d) for d in (dataset_train, dataset_valid, dataset_test))
+    compute_dtype = getattr(torch, args.compute_dtype)
+    if computes_in_float32_only(args.model, compute_dtype):
+        say(f"--compute_dtype {args.compute_dtype}: {args.model} has no {args.compute_dtype} "
+            f"path and computes in float32")
     model = get_model(
         args.model, spec.node_feat_dim, spec.edge_attr_dim, hidden=args.dim_hidden,
         virtual_channels=args.virtual_channel, n_layers=args.num_layer,
         num_blocks=args.num_layer,
         attention=args.attention_required,
         normalize=args.direction_vector_normalize_required, tanh=args.tanh_required,
-        gravity=gravity, compute_dtype=getattr(torch, args.compute_dtype),
+        gravity=gravity, compute_dtype=compute_dtype,
         device=dataset_train.device, generator=fix_seed(args.seed))
     say(f"Number of parameters: {sum(p.numel() for p in model.parameters())}")
     optimizer = torch_adam(model.parameters(), args.learning_rate, args.weight_decay)

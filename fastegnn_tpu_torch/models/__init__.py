@@ -8,9 +8,11 @@ virtual-node loss (reference ``utils/train.py:111-112``) and
 JAX package's sets).  ``TRIPLET_MODELS`` read the batch's triplet table
 (their datasets are wrapped in ``TripletDataset``).  Every name of the JAX
 registry has its port.  :func:`get_model` drops the keyword arguments a
-model does not take, as the JAX package's does, except a ``compute_dtype``
-other than f32 for a model without a bf16 path, which raises: the card
-does not run a precision the caller did not ask for.
+model does not take, as the JAX package's does: a model without
+``compute_dtype`` is built in float32 whatever dtype is asked for
+(:func:`computes_in_float32_only` tells the caller, which the CLIs print).
+The options no CLI sets (``residual``, ``node_attr_dim``) are constructor
+arguments only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ _GEOMETRIC_KW = {"hidden", "n_layers", "attention", "normalize", "tanh"}
 MODEL_KWARGS = {
     "FastEGNN": _GEOMETRIC_KW | {"virtual_channels", "gravity", "compute_dtype"},
     "FastRF": _GEOMETRIC_KW | {"virtual_channels", "gravity"},
-    # the JAX model takes `normalize` and does not use it
-    "FastSchNet": {"hidden", "n_layers", "attention", "tanh", "virtual_channels", "gravity"},
+    # FastSchNet and FastTFN take `normalize` and do not use it, as in JAX
+    "FastSchNet": _GEOMETRIC_KW | {"virtual_channels", "gravity"},
     "FastTFN": _GEOMETRIC_KW | {"virtual_channels", "gravity"},
     # the CLIs pass n_layers only: nf=32, num_degrees=2, div=1
     "TFN": {"nf", "n_layers", "num_degrees", "div"},
@@ -90,15 +92,18 @@ def get_model(name: str, node_feat_dim: int, edge_attr_dim: int, device=None,
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     allowed = MODEL_KWARGS[name]
-    dtype = kwargs.get("compute_dtype")
-    if "compute_dtype" not in allowed and dtype not in (None, torch.float32):
-        raise ValueError(f"{name} computes in float32 only (no {dtype} path)")
     kwargs = {k: v for k, v in kwargs.items() if k in allowed}
     return MODEL_REGISTRY[name](node_feat_dim, edge_attr_dim, device=device,
                                 generator=generator, **kwargs)
 
 
+def computes_in_float32_only(name: str, compute_dtype) -> bool:
+    """Whether :func:`get_model` builds ``name`` in float32 although
+    ``compute_dtype`` asks for another dtype: the model has no such path."""
+    return compute_dtype not in (None, torch.float32) and "compute_dtype" not in MODEL_KWARGS[name]
+
+
 __all__ = ["DimeNet", "DimeNetPlusPlus", "EGHN", "EGNN", "GNN", "GVPNet", "FastEGNN", "FastRF",
            "FastSchNet", "FastTFN", "FullMLP", "LinearDynamics", "OurDynamics", "RFVel",
            "SchNet", "TripletDataset", "VNEGNN", "MODEL_REGISTRY", "MMD_MODELS",
-           "MODEL_KWARGS", "TRIPLET_MODELS", "get_model"]
+           "MODEL_KWARGS", "TRIPLET_MODELS", "computes_in_float32_only", "get_model"]

@@ -192,18 +192,19 @@ class SchNetGCL(nn.Module):
     """One FastSchNet layer (``FastSchNet.py:18-229``)."""
 
     def __init__(self, hidden: int, virtual_channels: int, edge_attr_dim: int,
-                 attention: bool = False, tanh: bool = False, has_gravity: bool = False):
+                 node_attr_dim: int = 0, residual: bool = True, attention: bool = False,
+                 tanh: bool = False, has_gravity: bool = False):
         super().__init__()
         H, C = hidden, virtual_channels
-        self.cfg = LayerCfg(hidden=H, virtual_channels=C, attention=attention, tanh=tanh,
-                            has_gravity=has_gravity)
+        self.cfg = LayerCfg(hidden=H, virtual_channels=C, residual=residual,
+                            attention=attention, tanh=tanh, has_gravity=has_gravity)
         self.edge_mlp = mlp(2 * H + 1 + edge_attr_dim, H, H, act_final=True)
         self.edge_mlp_virtual = mlp(2 * H + 1 + C, H, H, act_final=True)
         self.coord_mlp_r_virtual = coord_mlp(H)
         self.coord_mlp_v_virtual = coord_mlp(H)
         if has_gravity:
             self.gravity_mlp = mlp(H, H, 1)
-        self.node_mlp = mlp(2 * H + C * H, H, H)
+        self.node_mlp = mlp(2 * H + C * H + node_attr_dim, H, H)
         self.node_mlp_virtual = mlp(2 * H, H, H)
         if attention:
             self.att_mlp = nn.Sequential(nn.Linear(H, 1), nn.Sigmoid())
@@ -211,7 +212,8 @@ class SchNetGCL(nn.Module):
         self.SchNetLayer = SchNetCore(H, num_filters=128, num_interactions=1,
                                       num_gaussians=50, cutoff=10.0)
 
-    def forward(self, h, x, vx, vh, graph: GraphBatch, gravity: Optional[torch.Tensor] = None):
+    def forward(self, h, x, vx, vh, graph: GraphBatch, gravity: Optional[torch.Tensor] = None,
+                node_attr: Optional[torch.Tensor] = None):
         """``(h, x, vx, vh)`` after the layer."""
         cfg = self.cfg
         ends = gather_edge_ends(graph, h, x)
@@ -224,7 +226,8 @@ class SchNetGCL(nn.Module):
         if cfg.has_gravity:
             x_new = x_new + node_gate(self.gravity_mlp, h, cfg.compute_dtype) * gravity
         vh_new = virtual_feature_update(cfg, self, vh, vb.pool_mv)
-        h_new = node_feature_update(cfg, self, h, segment_mean_at_dst(m_e, graph), vb.m_v)
+        h_new = node_feature_update(cfg, self, h, segment_mean_at_dst(m_e, graph), vb.m_v,
+                                    node_attr)
         return h_new, x_new, vb.vx_new, vh_new
 
 
@@ -232,23 +235,30 @@ class FastSchNet(VirtualNodeModel):
     """Reference ``FastSchNet`` (``FastSchNet.py:232-284``).
 
     ``forward(graph) -> (coord_pred [N, 3], virtual_coord [B, 3, C])``.
-    The JAX model's ``normalize`` (unused there) and ``residual`` (no CLI
-    sets it; the layers are residual) are not taken.
+    ``residual`` and ``node_attr_dim`` (the JAX ``use_node_attr``: the last
+    ``node_attr_dim`` columns of ``node_mlp``'s input read
+    ``graph.node_attr``) act as in FastEGNN; no CLI sets them.
+    ``normalize`` is taken and unused, as in the JAX model.
     """
 
     def __init__(self, node_feat_dim: int, edge_attr_dim: int, hidden: int = 64,
-                 virtual_channels: int = 3, n_layers: int = 4, attention: bool = False,
-                 tanh: bool = False, gravity: Optional[Sequence[float]] = None,
+                 virtual_channels: int = 3, n_layers: int = 4, residual: bool = True,
+                 attention: bool = False, normalize: bool = False, tanh: bool = False,
+                 gravity: Optional[Sequence[float]] = None, node_attr_dim: int = 0,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__(
             node_feat_dim, hidden, virtual_channels, n_layers, gravity,
-            lambda: SchNetGCL(hidden, virtual_channels, edge_attr_dim, attention=attention,
-                              tanh=tanh, has_gravity=gravity is not None),
+            lambda: SchNetGCL(hidden, virtual_channels, edge_attr_dim,
+                              node_attr_dim=node_attr_dim, residual=residual,
+                              attention=attention, tanh=tanh, has_gravity=gravity is not None),
             device, generator)
+        self.use_node_attr = node_attr_dim > 0
 
     def forward(self, graph: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         h, vx, vh = self.embed(graph)
         x = graph.coord
+        node_attr = graph.node_attr if self.use_node_attr else None
         for layer in self.layers():
-            h, x, vx, vh = layer(h, x, vx, vh, graph, gravity=self.gravity)
+            h, x, vx, vh = layer(h, x, vx, vh, graph, gravity=self.gravity,
+                                 node_attr=node_attr)
         return x, vx.transpose(1, 2)

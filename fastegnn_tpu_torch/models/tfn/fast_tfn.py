@@ -49,11 +49,12 @@ class TFNGCLVel(nn.Module):
     """One FastTFN layer (reference ``TFN_GCL_vel``, ``FastTFN.py:8-234``)."""
 
     def __init__(self, hidden: int, virtual_channels: int, edge_attr_dim: int,
-                 attention: bool = False, tanh: bool = False, has_gravity: bool = False):
+                 residual: bool = True, attention: bool = False, tanh: bool = False,
+                 has_gravity: bool = False):
         super().__init__()
         H, C = hidden, virtual_channels
-        self.cfg = LayerCfg(hidden=H, virtual_channels=C, attention=attention, tanh=tanh,
-                            has_gravity=has_gravity)
+        self.cfg = LayerCfg(hidden=H, virtual_channels=C, residual=residual,
+                            attention=attention, tanh=tanh, has_gravity=has_gravity)
         self.edge_mlp = mlp(2 * H + 1 + edge_attr_dim, H, H, act_final=True)
         self.edge_mlp_virtual = mlp(2 * H + 1 + C, H, H, act_final=True)
         self.coord_mlp_r_virtual = coord_mlp(H)
@@ -95,18 +96,20 @@ class FastTFN(VirtualNodeModel):
 
     ``forward(graph) -> (coord_pred [N, 3], virtual_coord [B, 3, C])``.
     The charges are ``graph.node_attr``, or else the first node feature
-    (the reference's train wiring, ``utils/train.py:60-62``).
+    (the reference's train wiring, ``utils/train.py:60-62``).  With
+    ``residual=False`` the feature updates replace the features, as in
+    FastEGNN; no CLI sets it.  The JAX model has no ``use_node_attr``.
     """
 
     def __init__(self, node_feat_dim: int, edge_attr_dim: int, hidden: int = 64,
-                 virtual_channels: int = 3, n_layers: int = 4, attention: bool = False,
-                 normalize: bool = False, tanh: bool = False,
+                 virtual_channels: int = 3, n_layers: int = 4, residual: bool = True,
+                 attention: bool = False, normalize: bool = False, tanh: bool = False,
                  gravity: Optional[Sequence[float]] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__(
             node_feat_dim, hidden, virtual_channels, n_layers, gravity,
-            lambda: TFNGCLVel(hidden, virtual_channels, edge_attr_dim, attention=attention,
-                              tanh=tanh, has_gravity=gravity is not None),
+            lambda: TFNGCLVel(hidden, virtual_channels, edge_attr_dim, residual=residual,
+                              attention=attention, tanh=tanh, has_gravity=gravity is not None),
             device, generator)
 
     def forward(self, graph: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,13 +19,17 @@ Each layer runs three sub-cells in turn:
 
 The virtual positions start at ``graph.virtual_fibonacci`` (the protein
 dataset's Fibonacci sphere) when the batch has them, else at
-``graph.loc_mean``.  VNEGNN trains on the MSE alone (it is not in
-``MMD_MODELS``).  Modules keep the reference's ``state_dict`` keys, so
-weights cross to the JAX package through ``fastegnn_tpu/utils/
-torch_import.py::params_from_vnegnn_state_dict`` and back through
+``graph.loc_mean``.  With ``residual=False`` each cell's feature update
+replaces the features instead of adding to them
+(``fastegnn_tpu/models/vnegnn.py:86, 116, 141``).  ``node_attr_dim > 0`` (the JAX ``use_node_attr``) feeds
+``graph.node_attr`` to the ``node_mlp`` of A2A and V2A, as the last
+``node_attr_dim`` columns of its input.  No CLI sets either.  VNEGNN
+trains on the MSE alone (it is not in ``MMD_MODELS``).  Modules keep the
+reference's ``state_dict`` keys, so weights cross to the JAX package
+through ``fastegnn_tpu/utils/torch_import.py::params_from_vnegnn_state_dict``
+and back through
 :func:`fastegnn_tpu_torch.utils.weights.state_dict_from_vnegnn_params`.
-The JAX model's ``use_node_attr`` and ``residual`` (no CLI sets them; the
-cells are residual) are not taken.  The model computes in f32 only.
+The model computes in f32 only.
 """
 
 from __future__ import annotations
@@ -43,13 +47,15 @@ from fastegnn_tpu_torch.models.fastegnn_core import (
 from fastegnn_tpu_torch.models.nn import coord_mlp, mlp
 
 
-def _cell(module: nn.Module, hidden: int, edge_in: int, attention: bool) -> None:
+def _cell(module: nn.Module, hidden: int, edge_in: int, attention: bool,
+          node_attr_dim: int = 0) -> None:
     """The three heads every cell has (``edge_mlp``, ``coord_mlp``,
-    ``node_mlp``), and ``att_mlp`` with attention."""
+    ``node_mlp`` on ``[features, messages (, node_attr)]``), and ``att_mlp``
+    with attention."""
     H = hidden
     module.edge_mlp = mlp(edge_in, H, H, act_final=True)
     module.coord_mlp = coord_mlp(H)
-    module.node_mlp = mlp(2 * H, H, H)
+    module.node_mlp = mlp(2 * H + node_attr_dim, H, H)
     if attention:
         module.att_mlp = nn.Sequential(nn.Linear(H, 1), nn.Sigmoid())
 
@@ -77,31 +83,41 @@ def dense_messages(cell, h, x, vh, vx):
     return m, vdiff, gate
 
 
+def feature_update(cell, h, messages, node_attr=None):
+    """``h`` after the cell's ``node_mlp`` on ``[h, messages (, node_attr)]``:
+    added to ``h``, or in its place without ``residual``."""
+    parts = [h, messages] if node_attr is None else [h, messages, node_attr]
+    dh = gate_head(cell.node_mlp, torch.cat(parts, -1))
+    return h + dh if cell.cfg.residual else dh
+
+
 class EGCL_A2A(nn.Module):
     """Real -> real cell (``VNEGNN.py:28-132``)."""
 
     def __init__(self, hidden: int, virtual_channels: int, edge_attr_dim: int,
-                 attention: bool = False, normalize: bool = False, tanh: bool = False):
+                 node_attr_dim: int = 0, residual: bool = True, attention: bool = False,
+                 normalize: bool = False, tanh: bool = False):
         super().__init__()
         self.cfg = LayerCfg(hidden=hidden, virtual_channels=virtual_channels,
-                            attention=attention, normalize=normalize, tanh=tanh)
-        _cell(self, hidden, 2 * hidden + 1 + edge_attr_dim, attention)
+                            residual=residual, attention=attention, normalize=normalize,
+                            tanh=tanh)
+        _cell(self, hidden, 2 * hidden + 1 + edge_attr_dim, attention, node_attr_dim)
         self.fused = fits_fused(self.cfg, edge_attr_dim)
 
-    def forward(self, h, x, graph: GraphBatch):
+    def forward(self, h, x, graph: GraphBatch, node_attr=None):
         m_sum, trans_sum = real_edge_sums(self, h, x, graph, self.coord_mlp)
         x = x + trans_sum / graph.dst_count.clamp_min(1.0)[:, None]
-        return h + gate_head(self.node_mlp, torch.cat([h, m_sum], -1)), x
+        return feature_update(self, h, m_sum, node_attr), x
 
 
 class EGCL_A2V(nn.Module):
     """Real -> virtual cell (``VNEGNN.py:136-226``)."""
 
-    def __init__(self, hidden: int, virtual_channels: int, attention: bool = False,
-                 tanh: bool = False):
+    def __init__(self, hidden: int, virtual_channels: int, residual: bool = True,
+                 attention: bool = False, tanh: bool = False):
         super().__init__()
         self.cfg = LayerCfg(hidden=hidden, virtual_channels=virtual_channels,
-                            attention=attention, tanh=tanh)
+                            residual=residual, attention=attention, tanh=tanh)
         _cell(self, hidden, 2 * hidden + 1, attention)
 
     def forward(self, h, x, vh, vx, graph: GraphBatch):
@@ -115,24 +131,24 @@ class EGCL_A2V(nn.Module):
 
         vx = vx + pool((vdiff * gate[..., None]).reshape(n, C * 3)).reshape(B, C, 3)
         pool_m = pool(m.reshape(n, C * H)).reshape(B, C, H)
-        return vh + gate_head(self.node_mlp, torch.cat([vh, pool_m], -1)), vx
+        return feature_update(self, vh, pool_m), vx
 
 
 class EGCL_V2A(nn.Module):
     """Virtual -> real cell (``VNEGNN.py:229-320``)."""
 
-    def __init__(self, hidden: int, virtual_channels: int, attention: bool = False,
-                 tanh: bool = False):
+    def __init__(self, hidden: int, virtual_channels: int, node_attr_dim: int = 0,
+                 residual: bool = True, attention: bool = False, tanh: bool = False):
         super().__init__()
         self.cfg = LayerCfg(hidden=hidden, virtual_channels=virtual_channels,
-                            attention=attention, tanh=tanh)
-        _cell(self, hidden, 2 * hidden + 1, attention)
+                            residual=residual, attention=attention, tanh=tanh)
+        _cell(self, hidden, 2 * hidden + 1, attention, node_attr_dim)
 
-    def forward(self, vh, vx, h, x, graph: GraphBatch):
+    def forward(self, vh, vx, h, x, graph: GraphBatch, node_attr=None):
         """``(h [N, H], x [N, 3])`` after the cell."""
         m, vdiff, gate = dense_messages(self, h, x, vh, vx)
         x = x - (vdiff * gate[..., None]).sum(1) / m.shape[1]
-        return h + gate_head(self.node_mlp, torch.cat([h, m.mean(1)], -1)), x
+        return feature_update(self, h, m.mean(1), node_attr), x
 
 
 class VNEGNN(VirtualNodeModel):
@@ -142,24 +158,27 @@ class VNEGNN(VirtualNodeModel):
     """
 
     def __init__(self, node_feat_dim: int, edge_attr_dim: int, hidden: int = 64,
-                 virtual_channels: int = 3, n_layers: int = 4, attention: bool = False,
-                 normalize: bool = False, tanh: bool = False,
-                 device=None, generator=None):
-        H, C = hidden, virtual_channels
+                 virtual_channels: int = 3, n_layers: int = 4, residual: bool = True,
+                 attention: bool = False, normalize: bool = False, tanh: bool = False,
+                 node_attr_dim: int = 0, device=None, generator=None):
+        H, C, Fa = hidden, virtual_channels, node_attr_dim
         super().__init__(
             node_feat_dim, H, C, n_layers, None,
-            lambda: {"A2A": EGCL_A2A(H, C, edge_attr_dim, attention, normalize, tanh),
-                     "A2V": EGCL_A2V(H, C, attention, tanh),
-                     "V2A": EGCL_V2A(H, C, attention, tanh)},
+            lambda: {"A2A": EGCL_A2A(H, C, edge_attr_dim, Fa, residual, attention, normalize,
+                                     tanh),
+                     "A2V": EGCL_A2V(H, C, residual, attention, tanh),
+                     "V2A": EGCL_V2A(H, C, Fa, residual, attention, tanh)},
             device, generator)
+        self.use_node_attr = node_attr_dim > 0
 
     def forward(self, graph: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         h, vx, vh = self.embed(graph)
         if graph.virtual_fibonacci is not None:
             vx = graph.virtual_fibonacci.transpose(1, 2)
         x = graph.coord
+        node_attr = graph.node_attr if self.use_node_attr else None
         for i in range(self.n_layers):
-            h, x = getattr(self, f"A2A_{i}")(h, x, graph)
+            h, x = getattr(self, f"A2A_{i}")(h, x, graph, node_attr)
             vh, vx = getattr(self, f"A2V_{i}")(h, x, vh, vx, graph)
-            h, x = getattr(self, f"V2A_{i}")(vh, vx, h, x, graph)
+            h, x = getattr(self, f"V2A_{i}")(vh, vx, h, x, graph, node_attr)
         return x, vx.transpose(1, 2)

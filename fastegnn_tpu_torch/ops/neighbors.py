@@ -1,4 +1,4 @@
-"""Host-side graph construction (numpy / scipy).
+"""Graph construction on the host (numpy / scipy) and on a tensor's device.
 
 Counterpart of ``fastegnn_tpu/ops/neighbors.py`` (its numpy builders),
 kept as the port's own copy so the port never imports the JAX package:
@@ -7,7 +7,10 @@ kept as the port's own copy so the port never imports the JAX package:
   ``(1 - cutoff_rate)`` fraction of shortest edges;
 - ``radius_graph_np``: all ordered pairs strictly within radius ``r``
   (both directions, no self loops), with scipy's cKDTree;
-- ``sort_cutoff_np``: keep the shortest fraction of an existing edge list.
+- ``sort_cutoff_np``: keep the shortest fraction of an existing edge list;
+- ``cutoff_edges_topk``: the ``num_edges`` shortest directed edges of the
+  complete graph, on the tensor's device (the JAX one takes them with
+  ``jax.lax.top_k``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def cutoff_edges_np(loc: np.ndarray, cutoff_rate: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -55,3 +59,19 @@ def sort_cutoff_np(
     order = np.argsort(d, kind="stable")
     keep = order[: int(order.size * (1.0 - cutoff_rate))]
     return dst[keep].astype(np.int32), src[keep].astype(np.int32)
+
+
+def cutoff_edges_topk(loc: torch.Tensor, num_edges: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``num_edges`` shortest directed edges of the complete graph on
+    ``loc [n, 3]`` (self loops masked with 1e18), ascending by squared
+    distance, on ``loc``'s device; returns int32 ``(dst, src)``.
+
+    ``jax.lax.top_k`` puts the lower flat index first among equal values,
+    and every edge ties with its reverse, so the edges come from a stable
+    sort of the squared distances: ``torch.topk`` does not fix the order of
+    ties."""
+    n = loc.shape[0]
+    diff = loc[:, None, :] - loc[None, :, :]
+    dist2 = (diff**2).sum(-1) + torch.eye(n, dtype=loc.dtype, device=loc.device) * 1e18
+    idx = torch.sort(dist2.reshape(-1), stable=True).indices[:num_edges]
+    return (idx // n).to(torch.int32), (idx % n).to(torch.int32)

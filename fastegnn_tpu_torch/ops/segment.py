@@ -94,6 +94,17 @@ def segment_softmax(
     return (expd / gather_through(denom, segment_ids, perm, rowptr)).reshape(shape)
 
 
+def graph_sum_pool(
+    data: torch.Tensor,
+    graph_id: torch.Tensor,
+    n_graphs: int,
+    node_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-graph sum over nodes -> ``[B, ...]``.  Padded nodes carry the
+    dump id ``n_graphs``: its segment is computed, then dropped."""
+    return segment_sum(data, graph_id, n_graphs + 1, node_mask)[:n_graphs]
+
+
 def graph_mean_pool(
     data: torch.Tensor,
     graph_id: torch.Tensor,

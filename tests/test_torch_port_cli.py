@@ -82,18 +82,50 @@ def test_cli_needs_a_card_unless_the_cpu_is_asked_for(data, monkeypatch):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cuda"])
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "TFN", "--compute_dtype", "bfloat16"],
-                                          "float32 only"),
-                                         (["--mesh", "data=2"], "torchrun"),
-                                         (["--mesh", "graph=2"],
-                                          "torchrun --standalone --nproc_per_node 2"),
-                                         (["--model", "EGHN", "--mesh", "data=2"],
-                                          "custom step"),
-                                         (["--model", "MLP"], "not a graph batch"),
-                                         (["--model", "EGHN"], "local bond edges")])
+# the ids of the cases as they were before the bf16 case left this test
+@pytest.mark.parametrize("flags,match", [
+    pytest.param(["--mesh", "data=2"], "torchrun", id="flags1-torchrun"),
+    pytest.param(["--mesh", "graph=2"], "torchrun --standalone --nproc_per_node 2",
+                 id="flags2-torchrun --standalone --nproc_per_node 2"),
+    pytest.param(["--model", "EGHN", "--mesh", "data=2"], "custom step",
+                 id="flags3-custom step"),
+    pytest.param(["--model", "MLP"], "not a graph batch", id="flags4-not a graph batch"),
+    pytest.param(["--model", "EGHN"], "local bond edges", id="flags5-local bond edges")])
 def test_cli_raises_on_what_the_port_does_not_have(data, flags, match):
     with pytest.raises(ValueError, match=match):
         pcli.main(["--data_directory", data, *ARGS, "--platform", "cpu", *flags])
+
+
+def _built_models(monkeypatch, train=True):
+    """The models the CLIs build from here on, in a list; with ``train``
+    False the training loop is stubbed out."""
+    from fastegnn_tpu_torch import models
+    from fastegnn_tpu_torch.train import loop
+
+    built = []
+    build = models.get_model
+    monkeypatch.setattr(models, "get_model", lambda *a, **k: built.append(build(*a, **k))
+                        or built[-1])
+    if not train:
+        monkeypatch.setattr(loop, "train", lambda *a, **k: ({"loss_valid": 0.0}, {}, 0))
+    return built
+
+
+def _check_float32(built, model, out):
+    """One model built, all in float32, and the CLI's line that says so."""
+    assert len(built) == 1 and all(p.dtype == torch.float32 for p in built[0].parameters())
+    assert f"{model} has no bfloat16 path and computes in float32" in out
+
+
+def test_cli_trains_in_float32_where_the_model_has_no_bf16_path(data, tmp_path, monkeypatch,
+                                                                 capsys):
+    # as the JAX CLI, whose get_model drops --compute_dtype for TFN
+    built = _built_models(monkeypatch)
+    best = pcli.main(["--data_directory", data, *ARGS, "--platform", "cpu", "--model", "TFN",
+                      "--compute_dtype", "bfloat16", "--max_epochs", "1", "--num_layer", "1",
+                      "--log_directory", str(tmp_path)])
+    assert np.isfinite(best["loss_valid"])
+    _check_float32(built, "TFN", capsys.readouterr().out)
 
 
 def test_parser_has_the_jax_flags_and_defaults():
@@ -214,10 +246,13 @@ def test_nbody_and_protein_clis_train_gvp_and_dimenet_on_the_cpu(nbody_data, pro
 
 
 @pytest.mark.parametrize("model", ["GVP", "DimeNet", "DimeNet++"])
-def test_new_models_refuse_bfloat16(nbody_data, model):
-    with pytest.raises(ValueError, match="float32 only"):
-        pnbody.main([*nbody_data, *TRAIN, "--model", model, "--platform", "cpu",
-                     "--compute_dtype", "bfloat16"])
+def test_new_models_refuse_bfloat16(nbody_data, model, monkeypatch, capsys, tmp_path):
+    # built in float32 with the CLI's line, as the JAX CLI builds them
+    # (the training loop stubbed out)
+    built = _built_models(monkeypatch, train=False)
+    pnbody.main([*nbody_data, *TRAIN, "--model", model, "--platform", "cpu",
+                 "--compute_dtype", "bfloat16", "--log_directory", str(tmp_path)])
+    _check_float32(built, model, capsys.readouterr().out)
 
 
 @pytest.mark.parametrize("model,match", [("MLP", "not a graph batch"),
@@ -238,10 +273,15 @@ def test_nbody_and_protein_clis_need_a_card_unless_the_cpu_is_asked_for(
         mod.main([*data, *TRAIN, "--platform", "cuda"])
 
 
-def test_protein_cli_raises_on_what_the_port_does_not_have(protein_npz, monkeypatch):
-    with pytest.raises(ValueError, match="float32 only"):
+def test_protein_cli_raises_on_what_the_port_does_not_have(protein_npz, monkeypatch, capsys,
+                                                           tmp_path):
+    # --compute_dtype bfloat16 with TFN trains in float32 (the training
+    # loop stubbed out here), as the JAX CLI does
+    with monkeypatch.context() as m:
+        built = _built_models(m, train=False)
         pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "TFN",
-                       "--compute_dtype", "bfloat16"])
+                       "--compute_dtype", "bfloat16", "--log_directory", str(tmp_path)])
+        _check_float32(built, "TFN", capsys.readouterr().out)
     with pytest.raises(ValueError, match="not a graph batch"):
         pprotein.main([*protein_npz, *TRAIN, "--platform", "cpu", "--model", "MLP"])
     monkeypatch.setitem(sys.modules, "MDAnalysis", None)

@@ -7,8 +7,9 @@ importer) and back through :func:`to_jax` here.  Model inputs are 3 graphs
 x 24 nodes (``helpers.random_raw_graph``) with a random 30% of the directed
 edges dropped, so that the edge set is not symmetric: on a symmetric edge
 set a TFN whose edge direction is flipped computes the same sums, and no
-test could tell the flip.  H=64, C=3, L=2, f32.  Training is held on the
-N-body data of ``tests/test_torch_port_nbody.py``.
+test could tell the flip.  H=64, C=3, L=2, f32; the model also with
+``residual=False``, which no CLI sets.  Training is held on the N-body data
+of ``tests/test_torch_port_nbody.py``.
 """
 
 import jax
@@ -119,10 +120,11 @@ def _numpy(sd):
     return {k: v.detach().numpy() for k, v in sd.items()}
 
 
-def _models(jb, gravity=GRAV, attention=False):
-    jm = JFastTFN(gravity=gravity, attention=attention, **KW)
+def _models(jb, gravity=GRAV, attention=False, residual=True):
+    jm = JFastTFN(gravity=gravity, attention=attention, residual=residual, **KW)
     params = jax.tree.map(np.asarray, jm.init(jax.random.key(0), jb)["params"])
-    pm = FastTFN(2, 2, gravity=gravity, attention=attention, device="cpu", **KW)
+    pm = FastTFN(2, 2, gravity=gravity, attention=attention, residual=residual, device="cpu",
+                 **KW)
     pm.load_state_dict(state_dict_from_fasttfn_params(params), strict=True)
     return jm, params, pm
 
@@ -265,13 +267,14 @@ def raws():
     return _raws()
 
 
-@pytest.fixture(scope="module", params=["plain", "attention"])
+@pytest.fixture(scope="module", params=["plain", "attention", "options"])
 def case(request, raws):
     """The JAX forward and MSE parameter gradients, and the port model with
-    the same weights, with gravity, without and with attention."""
+    the same weights, with gravity: without and with attention, and with
+    ``residual=False``."""
     jb, pb = _batches(raws)
     attention = request.param == "attention"
-    jm, params, pm = _models(jb, attention=attention)
+    jm, params, pm = _models(jb, attention=attention, residual=request.param != "options")
 
     def jloss(p):
         x, vx = jm.apply({"params": p}, jb)

@@ -136,6 +136,38 @@ def test_segment_ops_match_jax():
         rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_graph_sum_pool_matches_jax(masked):
+    # 3 graphs of 8 rows, the last 2 rows of each padding with the dump id 3
+    rng = np.random.default_rng(6)
+    data = rng.normal(size=(24, 2, 3)).astype(np.float32)
+    gid = np.where(np.arange(24) % 8 < 6, np.arange(24) // 8, 3).astype(np.int32)
+    mask = gid < 3 if masked else None
+    got = pseg.graph_sum_pool(torch.as_tensor(data), torch.as_tensor(gid), 3,
+                              None if mask is None else torch.as_tensor(mask))
+    want = np.asarray(jseg.graph_sum_pool(jnp.asarray(data), jnp.asarray(gid), 3,
+                                          None if mask is None else jnp.asarray(mask)))
+    assert got.shape == want.shape == (3, 2, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+# a random cloud, and a lattice whose equal distances tie far beyond each
+# edge and its reverse; k from one edge to the whole complete graph
+@pytest.mark.parametrize("cloud", ["random", "lattice"])
+def test_cutoff_edges_topk_matches_jax(cloud):
+    if cloud == "random":
+        loc = np.random.default_rng(8).normal(size=(20, 3)).astype(np.float32)
+    else:
+        loc = np.stack(np.meshgrid(*[np.arange(3.0)] * 3), -1).reshape(-1, 3).astype(np.float32)
+    n = loc.shape[0]
+    for k in (1, 7, 3 * n, n * (n - 1)):
+        got = pnb.cutoff_edges_topk(torch.as_tensor(loc), k)
+        want = jnb.cutoff_edges_topk(jnp.asarray(loc), k)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32 and b.dtype == jnp.int32 and a.shape == (k,)
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 # ---------------------------------------------------------------------------
 # batches composed from per-graph edge tables
 # ---------------------------------------------------------------------------

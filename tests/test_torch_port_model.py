@@ -13,6 +13,11 @@ The layer variants the fused edge block does not cover (attention,
 normalize + tanh, hidden 32) are also held against the JAX package's CSR
 branch, on a batch that carries its CSR tables so that the JAX side runs
 the Pallas segment-sum kernel (in interpret mode).
+
+The options no CLI sets, ``residual=False`` with the charges as node
+attributes (``OPTIONS``: the JAX ``use_node_attr``, the port's
+``node_attr_dim=1``), are held in f32 and bf16, on the fused branch and on
+the CSR branch (with attention, which the fused block does not cover).
 """
 
 import jax
@@ -42,6 +47,8 @@ from fastegnn_tpu_torch.utils.weights import state_dict_from_jax_params
 from helpers import random_raw_graph
 
 GRAV = (0.0, -1.0, 0.0)
+# the options no CLI sets, in the JAX model's terms (_models maps them)
+OPTIONS = dict(residual=False, use_node_attr=True)
 
 
 def _batches(n_graphs=4, n_nodes=40, seed=5, csr=False):
@@ -65,11 +72,16 @@ def _batches(n_graphs=4, n_nodes=40, seed=5, csr=False):
     return jb, pb
 
 
-def _models(jb, hidden=64, gravity=GRAV, **variant):
+def _models(jb, hidden=64, gravity=GRAV, compute_dtype="float32", fuse_edge=False,
+            use_node_attr=False, **variant):
+    """The JAX model, its init and the port model with its weights; the
+    JAX ``use_node_attr`` is the port's ``node_attr_dim=1``."""
     jm = JFastEGNN(hidden=hidden, virtual_channels=3, n_layers=2, gravity=gravity,
-                   fuse_edge=False, **variant)
+                   fuse_edge=fuse_edge, compute_dtype=compute_dtype,
+                   use_node_attr=use_node_attr, **variant)
     params = jax.tree.map(np.asarray, jm.init(jax.random.key(0), jb)["params"])
     pm = FastEGNN(2, 2, hidden=hidden, virtual_channels=3, n_layers=2, gravity=gravity,
+                  compute_dtype=getattr(torch, compute_dtype), node_attr_dim=int(use_node_attr),
                   device="cpu", **variant)
     pm.load_state_dict(state_dict_from_jax_params(params), strict=True)
     return jm, params, pm
@@ -82,10 +94,24 @@ def setup():
     return jb, pb, jm, params, pm
 
 
-@pytest.mark.parametrize("gravity,attention", [(GRAV, False), (None, True)])
-def test_weight_transfer_round_trips_bit_for_bit(gravity, attention):
+@pytest.fixture(scope="module")
+def options_setup():
+    jb, pb = _batches()
+    jm, params, pm = _models(jb, **OPTIONS)
+    assert pm.gcl_0.fused and not pm.gcl_0.cfg.residual
+    return jb, pb, jm, params, pm
+
+
+@pytest.mark.parametrize("gravity,attention,node_attr", [
+    pytest.param(GRAV, False, False, id="gravity0-False"),
+    pytest.param(None, True, False, id="None-True"),
+    pytest.param(GRAV, False, True, id="node_attr")])
+def test_weight_transfer_round_trips_bit_for_bit(gravity, attention, node_attr):
+    # with the node attributes node_mlp.0 is 2H + C H + 1 wide, the
+    # attribute column last on both sides
     jb, _ = _batches(n_graphs=2, n_nodes=6)
-    _, params, pm = _models(jb, gravity=gravity, attention=attention)
+    _, params, pm = _models(jb, gravity=gravity, attention=attention, use_node_attr=node_attr)
+    assert pm.gcl_1.node_mlp[0].in_features == 2 * 64 + 3 * 64 + int(node_attr)
     sd = {k: v.detach().numpy() for k, v in pm.state_dict().items()}
     back = params_from_reference_state_dict(
         sd, n_layers=2, hidden=64, virtual_channels=3,
@@ -97,9 +123,11 @@ def test_weight_transfer_round_trips_bit_for_bit(gravity, attention):
 
 # Coordinates within 1e-4: both packages sum the edge messages, pools and
 # matmuls in different orders, which compounds across the two layers.
-@pytest.mark.parametrize("jax_fused", [False, True])
-def test_forward_matches_jax(setup, jax_fused):
-    jb, pb, jm, params, pm = setup
+@pytest.mark.parametrize("jax_fused,options", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="options"), pytest.param(True, True, id="options-fused")])
+def test_forward_matches_jax(request, jax_fused, options):
+    jb, pb, jm, params, pm = request.getfixturevalue("options_setup" if options else "setup")
     if jax_fused:   # the JAX fused Pallas kernel, in interpret mode on the CPU
         jm = jm.clone(fuse_edge=True)
     xj, vj = jm.apply({"params": params}, jb)
@@ -110,9 +138,7 @@ def test_forward_matches_jax(setup, jax_fused):
     np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=1e-4, atol=1e-4)
 
 
-def test_param_gradients_of_mse_match_jax(setup):
-    jb, pb, jm, params, pm = setup
-
+def _check_mse_gradients(jb, pb, jm, params, pm):
     def jloss(p):
         x, _ = jm.apply({"params": p}, jb)
         return jmse(x, jb.coord_target, jb.node_mask)
@@ -125,10 +151,19 @@ def test_param_gradients_of_mse_match_jax(setup):
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
              for k, p in pm.named_parameters()}
     gp = params_from_reference_state_dict(grads, n_layers=2, has_gravity=True)
+    assert jax.tree.structure(gp) == jax.tree.structure(gj)
     for a, b in zip(jax.tree.leaves(gp), jax.tree.leaves(gj)):
         b = np.asarray(b)
         scale = float(np.abs(b).max()) + 1e-12
         np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
+
+
+def test_param_gradients_of_mse_match_jax(setup):
+    _check_mse_gradients(*setup)
+
+
+def test_options_param_gradients_of_mse_match_jax(options_setup):
+    _check_mse_gradients(*options_setup)
 
 
 def test_unfused_variant_matches_jax():
@@ -147,7 +182,8 @@ def test_unfused_variant_matches_jax():
 # The CSR-branch variants: (keyword arguments, hidden)
 VARIANTS = {"attention": (dict(attention=True), 64),
             "normalize_tanh": (dict(normalize=True, tanh=True), 64),
-            "hidden32": ({}, 32)}
+            "hidden32": ({}, 32),
+            "options": (dict(attention=True, **OPTIONS), 64)}
 
 
 @pytest.fixture(scope="module")
@@ -270,6 +306,32 @@ def test_bf16_fused_forward_matches_jax(bf16_case):
     xj = c["xj"][mask]
     assert np.abs(xp.numpy()[mask] - xj).max() <= BF16_MODEL_TOL["coord"] * np.abs(xj - x0).max()
     assert np.abs(vp.numpy() - c["vj"]).max() <= BF16_MODEL_TOL["virtual"] * np.abs(c["vj"]).max()
+
+
+@pytest.mark.parametrize("branch", ["fused", "csr"])
+def test_bf16_forward_with_options_matches_jax(branch, csr_batches):
+    """``OPTIONS`` in bf16: against the JAX fused bf16 model on the batch
+    of ``bf16_case`` (the JAX node path adds the attribute term in bf16,
+    fastegnn_tpu/models/fastegnn_core.py:343-347), at ``BF16_MODEL_TOL``;
+    and with attention against the JAX CSR branch, at the 2e-2 of
+    ``test_csr_branch_bf16_forward_matches_jax``."""
+    fused = branch == "fused"
+    jb, pb = _batches(n_graphs=3, n_nodes=30, seed=7) if fused else csr_batches
+    jm, params, pm = _models(jb, compute_dtype="bfloat16", fuse_edge=fused,
+                             attention=not fused, **OPTIONS)
+    assert pm.gcl_0.fused == fused and pm.gcl_0.cfg.compute_dtype == torch.bfloat16
+    xj, vj = (np.asarray(a) for a in jm.apply({"params": params}, jb))
+    with torch.no_grad():
+        xp, vp = (a.numpy() for a in pm(pb))
+    mask = np.asarray(jb.node_mask)
+    if fused:
+        x0 = np.asarray(jb.coord)[mask]
+        assert np.abs(xp[mask] - xj[mask]).max() <= BF16_MODEL_TOL["coord"] * np.abs(
+            xj[mask] - x0).max()
+        assert np.abs(vp - vj).max() <= BF16_MODEL_TOL["virtual"] * np.abs(vj).max()
+    else:
+        np.testing.assert_allclose(xp[mask], xj[mask], rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(vp, vj, rtol=2e-2, atol=2e-2)
 
 
 def test_bf16_fused_train_step_matches_jax(bf16_case):

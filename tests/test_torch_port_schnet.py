@@ -8,7 +8,10 @@ attention tests map those two linears themselves).  Inputs are 3 graphs x
 30 nodes (``helpers.random_raw_graph``), H=64, C=3, L=2, f32.  The embedded
 SchNet's CFConv output never reaches FastSchNet's output (the reference
 discards the SchNet's features), so the port does not run it and its
-parameters get no gradient; the JAX package's are zero.  Training is held on the N-body data of
+parameters get no gradient; the JAX package's are zero.  The options no CLI
+sets, ``residual=False`` with the charges as node attributes (the JAX
+``use_node_attr``, the port's ``node_attr_dim=1``: ``node_mlp.0``'s last
+input column), are held too.  Training is held on the N-body data of
 ``tests/test_torch_port_nbody.py``.
 """
 
@@ -63,21 +66,26 @@ def to_jax(sd, n_layers=2, has_gravity=True, attention=False):
     return p
 
 
-def _models(jb, gravity=GRAV, attention=False):
-    jm = JFastSchNet(gravity=gravity, attention=attention, **KW)
+def _models(jb, gravity=GRAV, attention=False, options=False):
+    """The JAX model, its init and the port model with its weights; with
+    ``options``, ``residual=False`` and the node attributes."""
+    jm = JFastSchNet(gravity=gravity, attention=attention, residual=not options,
+                     use_node_attr=options, **KW)
     params = jax.tree.map(np.asarray, jm.init(jax.random.key(0), jb)["params"])
-    pm = FastSchNet(2, 2, gravity=gravity, attention=attention, device="cpu", **KW)
+    pm = FastSchNet(2, 2, gravity=gravity, attention=attention, residual=not options,
+                    node_attr_dim=1 if options else 0, device="cpu", **KW)
     pm.load_state_dict(state_dict_from_fastschnet_params(params), strict=True)
     return jm, params, pm
 
 
-@pytest.fixture(scope="module", params=["plain", "attention"])
+@pytest.fixture(scope="module", params=["plain", "attention", "options"])
 def case(request):
     """The JAX forward and MSE parameter gradients, and the port model with
-    the same weights, without and with attention."""
+    the same weights: without and with attention, and with
+    ``residual=False`` and the node attributes."""
     jb, pb = _batches()
     attention = request.param == "attention"
-    jm, params, pm = _models(jb, attention=attention)
+    jm, params, pm = _models(jb, attention=attention, options=request.param == "options")
 
     def jloss(p):
         x, vx = jm.apply({"params": p}, jb)
@@ -88,20 +96,29 @@ def case(request):
                 vj=np.asarray(vj), gj=gj)
 
 
-@pytest.mark.parametrize("gravity,attention", [(GRAV, False), (None, False), (GRAV, True)])
-def test_weights_round_trip_bit_for_bit(gravity, attention):
+@pytest.mark.parametrize("gravity,attention,node_attr", [
+    pytest.param(GRAV, False, False, id="gravity0-False"),
+    pytest.param(None, False, False, id="None-False"),
+    pytest.param(GRAV, True, False, id="gravity2-True"),
+    pytest.param(GRAV, False, True, id="node_attr")])
+def test_weights_round_trip_bit_for_bit(gravity, attention, node_attr):
     # port -> the JAX importer -> the inverse, from a port init; and JAX
-    # params -> the inverse -> the importer
-    pm = FastSchNet(2, 2, gravity=gravity, attention=attention, device="cpu",
-                    generator=torch.Generator().manual_seed(0), **KW)
+    # params -> the inverse -> the importer.  The [H, C] -> [C, H] column
+    # permutation of node_mlp.0 leaves the attribute column last
+    pm = FastSchNet(2, 2, gravity=gravity, attention=attention, node_attr_dim=int(node_attr),
+                    device="cpu", generator=torch.Generator().manual_seed(0), **KW)
+    assert pm.gcl_1.node_mlp[0].in_features == 2 * 64 + 3 * 64 + int(node_attr)
     sd = {k: v.detach().numpy() for k, v in pm.state_dict().items()}
     back = state_dict_from_fastschnet_params(to_jax(sd, has_gravity=gravity is not None,
                                                     attention=attention))
     assert back.keys() == sd.keys()
     for k in sd:
         np.testing.assert_array_equal(back[k].numpy(), sd[k], err_msg=k)
+    if node_attr:
+        K = to_jax(sd)["gcl_1"]["node_mlp"]["lin0"]["kernel"]
+        np.testing.assert_array_equal(K[-1], sd["gcl_1.node_mlp.0.weight"][:, -1])
     jb, _ = _batches(n_graphs=2, n_nodes=6)
-    _, params, pm = _models(jb, gravity=gravity, attention=attention)
+    _, params, pm = _models(jb, gravity=gravity, attention=attention, options=node_attr)
     again = to_jax({k: v.detach().numpy() for k, v in pm.state_dict().items()},
                    has_gravity=gravity is not None, attention=attention)
     assert jax.tree.structure(again) == jax.tree.structure(params)

@@ -268,8 +268,9 @@ def test_get_model_builds_the_clis_tfn():
     assert m.se3.num_layers == 3 and m.se3.max_degree == 1
     assert m.se3.conv_1.core.pair_1_1.rp.lin2.out_features == 3 * 32 * 32   # nf = 32
     assert not hasattr(m.se3, "conv_2") and "TFN" not in MMD_MODELS
-    with pytest.raises(ValueError, match="float32 only"):
-        get_model("TFN", 2, 2, compute_dtype=torch.bfloat16, device="cpu")
+    # no bf16 path: built in float32 when bf16 is asked for, as in JAX
+    m = get_model("TFN", 2, 2, compute_dtype=torch.bfloat16, device="cpu")
+    assert all(p.dtype == torch.float32 for p in m.parameters())
 
 
 def test_the_zero_feature_gradient_is_finite_in_the_port():

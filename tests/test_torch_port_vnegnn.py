@@ -7,9 +7,11 @@ attention cases map those linears themselves).  Inputs are 3 graphs x 30
 nodes (``helpers.random_raw_graph``), H=64, C=3, L=2, f32.  Both branches
 of the A2A cell are covered: the fused edge block (its plain version on the
 CPU, with the node messages summed) and, with attention on, the CSR branch;
-and both sources of the virtual positions, ``loc_mean`` and
-``virtual_fibonacci``.  VNEGNN trains on the MSE alone; training is held on
-the N-body data of ``tests/test_torch_port_nbody.py``.
+both sources of the virtual positions, ``loc_mean`` and
+``virtual_fibonacci``; and the options no CLI sets, ``residual=False`` with
+the charges as node attributes (the JAX ``use_node_attr``, the port's
+``node_attr_dim=1``), on the fused branch.  VNEGNN trains on the MSE alone;
+training is held on the N-body data of ``tests/test_torch_port_nbody.py``.
 """
 
 import jax
@@ -65,22 +67,26 @@ def to_jax(sd, n_layers=2, attention=False):
     return p
 
 
-def _models(jb, attention=False):
-    jm = JVNEGNN(attention=attention, **KW)
+def _models(jb, attention=False, options=False):
+    """The JAX model, its init and the port model with its weights; with
+    ``options``, ``residual=False`` and the node attributes."""
+    jm = JVNEGNN(attention=attention, residual=not options, use_node_attr=options, **KW)
     params = jax.tree.map(np.asarray, jm.init(jax.random.key(0), jb)["params"])
-    pm = VNEGNN(2, 2, attention=attention, device="cpu", **KW)
+    pm = VNEGNN(2, 2, attention=attention, residual=not options,
+                node_attr_dim=1 if options else 0, device="cpu", **KW)
     pm.load_state_dict(state_dict_from_vnegnn_params(params), strict=True)
     return jm, params, pm
 
 
-@pytest.fixture(scope="module", params=["fused", "attention", "fibonacci"])
+@pytest.fixture(scope="module", params=["fused", "attention", "fibonacci", "options"])
 def case(request):
     """The JAX forward and MSE parameter gradients, and the port model with
-    the same weights: the fused A2A branch, the CSR branch (attention), and
-    the fused branch with the virtual positions from ``virtual_fibonacci``."""
+    the same weights: the fused A2A branch, the CSR branch (attention), the
+    fused branch with the virtual positions from ``virtual_fibonacci``, and
+    the fused branch with ``residual=False`` and the node attributes."""
     jb, pb = _batches(fibonacci=request.param == "fibonacci")
     attention = request.param == "attention"
-    jm, params, pm = _models(jb, attention=attention)
+    jm, params, pm = _models(jb, attention=attention, options=request.param == "options")
     assert pm.A2A_0.fused == (not attention)
 
     def jloss(p):
@@ -92,19 +98,24 @@ def case(request):
                 vj=np.asarray(vj), gj=gj)
 
 
-@pytest.mark.parametrize("attention", [False, True])
-def test_weights_round_trip_bit_for_bit(attention):
+@pytest.mark.parametrize("attention,node_attr", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="node_attr")])
+def test_weights_round_trip_bit_for_bit(attention, node_attr):
     # port -> params_from_vnegnn_state_dict -> the inverse, from a port
-    # init; and JAX params -> the inverse -> the importer
-    pm = VNEGNN(2, 2, attention=attention, device="cpu",
+    # init; and JAX params -> the inverse -> the importer.  With the node
+    # attributes node_mlp.0 of A2A and V2A is 2H + 1 wide
+    pm = VNEGNN(2, 2, attention=attention, node_attr_dim=int(node_attr), device="cpu",
                 generator=torch.Generator().manual_seed(0), **KW)
+    assert pm.V2A_1.node_mlp[0].in_features == 2 * 64 + int(node_attr)
+    assert pm.A2V_1.node_mlp[0].in_features == 2 * 64
     sd = {k: v.detach().numpy() for k, v in pm.state_dict().items()}
     back = state_dict_from_vnegnn_params(to_jax(sd, attention=attention))
     assert back.keys() == sd.keys()
     for k in sd:
         np.testing.assert_array_equal(back[k].numpy(), sd[k], err_msg=k)
     jb, _ = _batches(n_graphs=2, n_nodes=6)
-    _, params, pm = _models(jb, attention=attention)
+    _, params, pm = _models(jb, attention=attention, options=node_attr)
     again = to_jax({k: v.detach().numpy() for k, v in pm.state_dict().items()},
                    attention=attention)
     assert jax.tree.structure(again) == jax.tree.structure(params)
