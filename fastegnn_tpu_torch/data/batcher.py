@@ -15,6 +15,11 @@ prefetch threads put no work on a CUDA stream.  On a card the prefetch
 thread also copies the batch into page-locked memory (as torch's
 ``DataLoader`` pins in a thread of its own), which the copy to the card
 needs to overlap the host.
+
+Under a profiler the batcher records the spans ``batcher.collate`` and
+``batcher.pin`` (in the thread that collates), ``batcher.wait`` (the
+consuming thread's wait for a prefetched batch) and ``batcher.h2d``
+(issuing the copy), through ``utils/profiling.py::span``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 
 from fastegnn_tpu_torch import resolve_device
 from fastegnn_tpu_torch.graph import EdgeTable, GraphBatch, GraphSpec, batch_graphs, edge_table
+from fastegnn_tpu_torch.utils.profiling import span
 
 
 class GraphDataset:
@@ -40,10 +46,7 @@ class GraphDataset:
         self.graphs: List[dict] = list(graphs)
         self.spec = spec
         self.device = resolve_device(device)
-        t0 = time.perf_counter()
         self.tables: List[EdgeTable] = [edge_table(g, spec) for g in self.graphs]
-        # host seconds of the edge tables' build
-        self.table_seconds = time.perf_counter() - t0
         self._collate_cache: Optional[dict] = None
         # host seconds of each collate, appended by whichever thread ran it
         self.collate_seconds: List[float] = []
@@ -76,9 +79,11 @@ class GraphDataset:
         if self._cached(indices) is not None:
             return None
         t0 = time.perf_counter()
-        out = self.host_collate(indices)
+        with span("batcher.collate"):
+            out = self.host_collate(indices)
         if self.device.type == "cuda":
-            out = out.pin_memory()
+            with span("batcher.pin"):
+                out = out.pin_memory()
         self.collate_seconds.append(time.perf_counter() - t0)
         return out
 
@@ -87,7 +92,8 @@ class GraphDataset:
         hit = self._cached(indices)
         if hit is not None:
             return hit
-        out = host.to(self.device, non_blocking=True)
+        with span("batcher.h2d"):
+            out = host.to(self.device, non_blocking=True)
         if self._collate_cache is not None:
             self._collate_cache[tuple(int(i) for i in indices)] = out
         return out
@@ -136,7 +142,9 @@ class GraphDataset:
                         nidx = index_lists[nxt]
                         pending.append((nidx, pool.submit(self._host_batch, nidx)))
                         nxt += 1
-                    yield self._to_device(idx, fut.result())
+                    with span("batcher.wait"):
+                        host = fut.result()
+                    yield self._to_device(idx, host)
             finally:
                 for _, fut in pending:
                     fut.cancel()

@@ -28,6 +28,11 @@ batch's ``[B, n_max]`` node layout (:func:`per_graph_take`) and the
 per-graph pool a masked sum over that layout (:func:`per_graph_pool`), unless the caller passes its
 own ``take`` / ``pool`` (the owner-sharded path, ``parallel/owner_graph.py``,
 whose rows are one shard of the batch).
+
+Under a profiler the layer parts record spans (``utils/profiling.py::span``):
+``model.embed`` (:meth:`VirtualNodeModel.embed`), ``layer.edges``
+(:func:`real_edge_sums`), ``layer.virtual`` (:func:`virtual_block`) and
+``layer.update`` (the coordinate and feature updates after it).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from fastegnn_tpu_torch.graph import GraphBatch
 from fastegnn_tpu_torch.models.nn import init_parameters_, linear
 from fastegnn_tpu_torch.ops.edge_kernel import FE_MAX, H as EDGE_H, fused_edge_block
 from fastegnn_tpu_torch.ops.spmm import gather_dst, gather_src, sorted_segment_sum_csr
+from fastegnn_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -174,43 +180,44 @@ def virtual_block(cfg: LayerCfg, layer, h, x, vx, vh, node_mask,
     :func:`per_graph_take` and :func:`per_graph_pool`; the owner-sharded path
     passes a take by ``graph_id`` and a pool summed over its shards (the
     JAX ``virtual_and_node_update(..., take=, pool=)``)."""
-    H, C = cfg.hidden, cfg.virtual_channels
-    cd = cfg.compute_dtype
-    n, B = h.shape[0], vx.shape[0]
+    with span("layer.virtual"):
+        H, C = cfg.hidden, cfg.virtual_channels
+        cd = cfg.compute_dtype
+        n, B = h.shape[0], vx.shape[0]
 
-    if take is None:
-        def take(table):
-            return per_graph_take(table, n)
+        if take is None:
+            def take(table):
+                return per_graph_take(table, n)
 
-    if pool is None:
-        def pool(z):
-            return per_graph_pool(z.float(), node_mask, B)
+        if pool is None:
+            def pool(z):
+                return per_graph_pool(z.float(), node_mask, B)
 
-    vdiff = take(vx.float()) - x[:, None, :]                  # [n, C, 3]
-    vrad = (vdiff * vdiff).sum(-1).sqrt()                      # [n, C]
-    m_x = vx - pool(x)[:, None, :]
-    gram = torch.einsum("bci,bdi->bcd", m_x, m_x)              # [B, C, C]
+        vdiff = take(vx.float()) - x[:, None, :]                  # [n, C, 3]
+        vrad = (vdiff * vdiff).sum(-1).sqrt()                      # [n, C]
+        m_x = vx - pool(x)[:, None, :]
+        gram = torch.einsum("bci,bdi->bcd", m_x, m_x)              # [B, C, C]
 
-    # phi_ev on [h, vh, vrad, gram]; the first layer is split by input block
-    ev0 = layer.edge_mlp_virtual[0]
-    W0 = ev0.weight.to(cd)                                      # [H, 2H+1+C]
-    zh = h.to(cd) @ W0[:, :H].T                                 # [n, H]
-    zb = (vh.to(cd) @ W0[:, H:2 * H].T + gram.to(cd) @ W0[:, 2 * H + 1:].T
-          + ev0.bias.to(cd))                                    # [B, C, H]
-    z1 = zh[:, None, :] + vrad[..., None].to(cd) * W0[:, 2 * H] + take(zb)
-    m_v = silu(linear(silu(z1), layer.edge_mlp_virtual[2], cd))  # [n, C, H]
-    if cfg.attention:
-        m_v = m_v * torch.sigmoid(linear(m_v, layer.att_mlp_virtual[0], cd))
+        # phi_ev on [h, vh, vrad, gram]; the first layer is split by input block
+        ev0 = layer.edge_mlp_virtual[0]
+        W0 = ev0.weight.to(cd)                                      # [H, 2H+1+C]
+        zh = h.to(cd) @ W0[:, :H].T                                 # [n, H]
+        zb = (vh.to(cd) @ W0[:, H:2 * H].T + gram.to(cd) @ W0[:, 2 * H + 1:].T
+              + ev0.bias.to(cd))                                    # [B, C, H]
+        z1 = zh[:, None, :] + vrad[..., None].to(cd) * W0[:, 2 * H] + take(zb)
+        m_v = silu(linear(silu(z1), layer.edge_mlp_virtual[2], cd))  # [n, C, H]
+        if cfg.attention:
+            m_v = m_v * torch.sigmoid(linear(m_v, layer.att_mlp_virtual[0], cd))
 
-    gate_xv = gate_head(layer.coord_mlp_r_virtual, m_v, cd)[..., 0]   # [n, C]
-    gate_X = gate_head(layer.coord_mlp_v_virtual, m_v, cd)[..., 0]
-    if cfg.tanh:
-        gate_xv, gate_X = torch.tanh(gate_xv), torch.tanh(gate_X)
+        gate_xv = gate_head(layer.coord_mlp_r_virtual, m_v, cd)[..., 0]   # [n, C]
+        gate_X = gate_head(layer.coord_mlp_v_virtual, m_v, cd)[..., 0]
+        if cfg.tanh:
+            gate_xv, gate_X = torch.tanh(gate_xv), torch.tanh(gate_X)
 
-    pull = (vdiff * gate_xv[..., None]).sum(1) * (1.0 / C)
-    vx_new = vx + pool((vdiff * gate_X[..., None]).reshape(n, 3 * C).to(cd)).reshape(B, C, 3)
-    pool_mv = pool(m_v.reshape(n, C * H)).reshape(B, C, H) if pool_messages else None
-    return VirtualBlock(vdiff=vdiff, pull=pull, vx_new=vx_new, m_v=m_v, pool_mv=pool_mv)
+        pull = (vdiff * gate_xv[..., None]).sum(1) * (1.0 / C)
+        vx_new = vx + pool((vdiff * gate_X[..., None]).reshape(n, 3 * C).to(cd)).reshape(B, C, 3)
+        pool_mv = pool(m_v.reshape(n, C * H)).reshape(B, C, H) if pool_messages else None
+        return VirtualBlock(vdiff=vdiff, pull=pull, vx_new=vx_new, m_v=m_v, pool_mv=pool_mv)
 
 
 def virtual_feature_update(cfg: LayerCfg, layer, vh, pool_mv):
@@ -253,13 +260,14 @@ def virtual_and_node_update(
     ``take`` / ``pool``: :func:`virtual_block`'s."""
     cd = cfg.compute_dtype
     vb = virtual_block(cfg, layer, h, x, vx, vh, node_mask, take=take, pool=pool)
-    x_new = x + agg_x
-    x_new = x_new - vb.pull
-    x_new = x_new + node_gate(layer.coord_mlp_vel, h, cd) * v
-    if cfg.has_gravity:
-        x_new = x_new + node_gate(layer.gravity_mlp, h, cd) * gravity
-    vh_new = virtual_feature_update(cfg, layer, vh, vb.pool_mv)
-    h_new = node_feature_update(cfg, layer, h, agg_e, vb.m_v, node_attr)
+    with span("layer.update"):
+        x_new = x + agg_x
+        x_new = x_new - vb.pull
+        x_new = x_new + node_gate(layer.coord_mlp_vel, h, cd) * v
+        if cfg.has_gravity:
+            x_new = x_new + node_gate(layer.gravity_mlp, h, cd) * gravity
+        vh_new = virtual_feature_update(cfg, layer, vh, vb.pool_mv)
+        h_new = node_feature_update(cfg, layer, h, agg_e, vb.m_v, node_attr)
     return h_new, x_new, vb.vx_new, vh_new
 
 
@@ -284,21 +292,22 @@ def real_edge_sums(layer, h, x, graph: GraphBatch, gate_mlp=None, csr: bool = Fa
     ``n_real_edges``, ``src_perm`` and ``src_rowptr``, over ``N`` = the
     rows of ``h`` and ``x``: a batch, or an owner shard whose table holds
     halo rows after its own (``parallel/owner_graph.py``)."""
-    cfg = layer.cfg
-    gate_mlp = layer.coord_mlp_r if gate_mlp is None else gate_mlp
-    if layer.fused and not csr:
-        e0, e2, g0, g2 = layer.edge_mlp[0], layer.edge_mlp[2], gate_mlp[0], gate_mlp[2]
-        return fused_edge_block(
-            h, x, graph.rowptr, graph.src, graph.dst, graph.edge_attr,
-            e0.weight.t(), e0.bias, e2.weight.t(), e2.bias,
-            g0.weight.t(), g0.bias, g2.weight.t(),
-            compute_dtype=cfg.compute_dtype)
-    ne, H = graph.n_real_edges, cfg.hidden
-    h_d, h_s, x_d, x_s = gather_edge_ends(graph, h, x)
-    m_e, trans = edge_messages(cfg, layer, h_d, h_s, x_d, x_s, graph.edge_attr[:ne], gate_mlp)
-    summed = sorted_segment_sum_csr(
-        torch.cat([m_e, trans.to(m_e.dtype)], -1), graph.dst[:ne], graph.rowptr, h.shape[0])
-    return summed[:, :H], summed[:, H:]
+    with span("layer.edges"):
+        cfg = layer.cfg
+        gate_mlp = layer.coord_mlp_r if gate_mlp is None else gate_mlp
+        if layer.fused and not csr:
+            e0, e2, g0, g2 = layer.edge_mlp[0], layer.edge_mlp[2], gate_mlp[0], gate_mlp[2]
+            return fused_edge_block(
+                h, x, graph.rowptr, graph.src, graph.dst, graph.edge_attr,
+                e0.weight.t(), e0.bias, e2.weight.t(), e2.bias,
+                g0.weight.t(), g0.bias, g2.weight.t(),
+                compute_dtype=cfg.compute_dtype)
+        ne, H = graph.n_real_edges, cfg.hidden
+        h_d, h_s, x_d, x_s = gather_edge_ends(graph, h, x)
+        m_e, trans = edge_messages(cfg, layer, h_d, h_s, x_d, x_s, graph.edge_attr[:ne], gate_mlp)
+        summed = sorted_segment_sum_csr(
+            torch.cat([m_e, trans.to(m_e.dtype)], -1), graph.dst[:ne], graph.rowptr, h.shape[0])
+        return summed[:, :H], summed[:, H:]
 
 
 class VirtualNodeModel(nn.Module):
@@ -340,5 +349,6 @@ class VirtualNodeModel(nn.Module):
     def embed(self, graph: GraphBatch):
         """``(h [N, H], vx [B, C, 3], vh [B, C, H])`` before the first layer."""
         B, C, H = graph.n_graphs, self.virtual_channels, self.hidden
-        vh = self.virtual_node_feat.transpose(1, 2).expand(B, C, H)
-        return self.embedding_in(graph.node_feat), graph.loc_mean.transpose(1, 2), vh
+        with span("model.embed"):
+            vh = self.virtual_node_feat.transpose(1, 2).expand(B, C, H)
+            return self.embedding_in(graph.node_feat), graph.loc_mean.transpose(1, 2), vh

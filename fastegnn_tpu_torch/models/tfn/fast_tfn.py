@@ -43,6 +43,7 @@ from fastegnn_tpu_torch.models.fastegnn_core import (
     node_gate, segment_mean_at_dst, virtual_block, virtual_feature_update)
 from fastegnn_tpu_torch.models.nn import coord_mlp, mlp
 from fastegnn_tpu_torch.models.tfn.models import OursTFN, TFNInputs, vec_from_sh, vec_to_sh
+from fastegnn_tpu_torch.utils.profiling import span
 
 
 class TFNGCLVel(nn.Module):
@@ -74,7 +75,8 @@ class TFNGCLVel(nn.Module):
         caller reads only ``x`` and ``vx``, and ``h`` and ``vh`` come back
         as ``None``."""
         cfg = self.cfg
-        tfn_out = self.tfn_layer(tfn_h, graph, tfn_inputs)
+        with span("layer.tfn"):
+            tfn_out = self.tfn_layer(tfn_h, graph, tfn_inputs)
         x_new = x + vec_from_sh(tfn_out[1][:, 0, :])
         vb = virtual_block(cfg, self, h, x, vx, vh, graph.node_mask,
                            pool_messages=features)
@@ -83,11 +85,15 @@ class TFNGCLVel(nn.Module):
             x_new = x_new + node_gate(self.gravity_mlp, h, cfg.compute_dtype) * gravity
         if not features:
             return None, x_new, vb.vx_new, None
-        h_d, h_s, x_d, x_s = gather_edge_ends(graph, h, x)
-        radial = ((x_d - x_s) ** 2).sum(-1, keepdim=True)
-        m_e = edge_features(cfg, self, h_d, h_s, radial, graph.edge_attr[:graph.n_real_edges])
-        vh_new = virtual_feature_update(cfg, self, vh, vb.pool_mv)
-        h_new = node_feature_update(cfg, self, h, segment_mean_at_dst(m_e, graph), vb.m_v)
+        with span("layer.edges"):
+            h_d, h_s, x_d, x_s = gather_edge_ends(graph, h, x)
+            radial = ((x_d - x_s) ** 2).sum(-1, keepdim=True)
+            m_e = edge_features(cfg, self, h_d, h_s, radial,
+                                graph.edge_attr[:graph.n_real_edges])
+            agg_e = segment_mean_at_dst(m_e, graph)
+        with span("layer.update"):
+            vh_new = virtual_feature_update(cfg, self, vh, vb.pool_mv)
+            h_new = node_feature_update(cfg, self, h, agg_e, vb.m_v)
         return h_new, x_new, vb.vx_new, vh_new
 
 
@@ -118,7 +124,8 @@ class FastTFN(VirtualNodeModel):
         charges = graph.node_attr if graph.node_attr is not None else graph.node_feat[:, :1]
         tfn_h = {0: charges[..., None], 1: vec_to_sh(graph.vel)[:, None, :]}
         # the same for every layer: the TFN reads the batch, not the layer
-        tfn_inputs = self.gcl_0.tfn_layer.inputs(tfn_h, graph)
+        with span("tfn.inputs"):
+            tfn_inputs = self.gcl_0.tfn_layer.inputs(tfn_h, graph)
         last = self.n_layers - 1
         for i, layer in enumerate(self.layers()):
             h, x, vx, vh = layer(h, x, vx, vh, graph, tfn_h, tfn_inputs, gravity=self.gravity,

@@ -29,7 +29,9 @@ m_out, m_in, nfreq]`` is wider than the radial MLP's hidden layer (at
 ``nf = 32``, 1,024-3,072 floats per edge) keeps no profile for the
 backward either: :class:`_ProfileContraction` forms it over chunks of
 edges and forms it again in the backward.  The pairs of FastTFN's one-
-channel TFN (at most 3 floats per edge) keep theirs.
+channel TFN (at most 3 floats per edge) keep theirs.  Under a profiler the
+radial MLP and, where chunked, the contraction record the span
+``tfn.radial`` (``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from fastegnn_tpu_torch.models.nn import he_linear
 from fastegnn_tpu_torch.models.tfn.so3 import real_clebsch_gordan, real_sph_harm_all
 from fastegnn_tpu_torch.ops.segment import segment_softmax
 from fastegnn_tpu_torch.ops.spmm import gather_dst, gather_src, src_segment_sum_csr
+from fastegnn_tpu_torch.utils.profiling import span
 
 PROFILE_CHUNK = 1 << 26   # profile floats per chunk of edges (256 MiB in f32)
 
@@ -184,14 +187,16 @@ class PairwiseConv(nn.Module):
     def forward(self, feat, basis, h_e):
         K = basis[(self.d_in, self.d_out)]
         if not self.chunked:
-            R = self.rp(feat)                                     # [E, mo, mi, F]
+            with span("tfn.radial"):
+                R = self.rp(feat)                                 # [E, mo, mi, F]
             Kh = torch.einsum("efoi,eni->efon", K, h_e)
             return torch.einsum("emnf,efon->emo", R, Kh)
         # [E, mi, F, O]: the (m_in, nfreq) order of the profile's columns
         Kh = torch.einsum("efoi,eni->enfo", K, h_e)
         kh = Kh.reshape(Kh.shape[0], -1, Kh.shape[-1]).contiguous()
-        return _ProfileContraction.apply(self.rp.hidden(feat), self.rp.lin2.weight,
-                                         self.rp.lin2.bias, kh)
+        with span("tfn.radial"):
+            return _ProfileContraction.apply(self.rp.hidden(feat), self.rp.lin2.weight,
+                                             self.rp.lin2.bias, kh)
 
 
 def gather_ends(h: Dict[int, torch.Tensor], graph: GraphBatch, at_src: bool = True):

@@ -28,7 +28,8 @@ into ``dh``, ``dW1`` and ``db1`` with three matmuls, as the JAX op does.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``
-count kernel launches.
+count kernel launches; under a profiler the wrappers record the spans
+``ops.edge_fwd`` / ``ops.edge_bwd`` (``utils/profiling.py::span``) around them.
 
 Compute modes: f32, and bf16 where the tables are bf16, the weights are
 rounded to bf16 and the chain's pre-activations, sigmoid / silu outputs and
@@ -43,6 +44,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from fastegnn_tpu_torch.utils.profiling import span
 
 H = 64
 FE_MAX = 3
@@ -244,21 +247,22 @@ def edge_block_fwd(ud, us, x, rowptr, src, ea, wpack, bf16: bool):
     CPU tensors run :func:`edge_block_fwd_plain`; CUDA tensors launch the
     kernel (``csrc/edge_block.cu``) or raise."""
     global FWD_LAUNCHES
-    if x.device.type == "cpu":
-        return edge_block_fwd_plain(ud, us, x, rowptr, src, ea, wpack, bf16)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _check_cuda(bf16, ud, us, x, rowptr, src, ea, wpack)
-    lib = _lib()
-    n = x.shape[0]
-    m_sum = torch.empty((n, H), dtype=torch.float32, device=x.device)
-    t_sum = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _call(lib.fastegnn_edge_fwd, int(bf16), ud.data_ptr(), us.data_ptr(), x.data_ptr(),
-          rowptr.data_ptr(), src.data_ptr(), ea.data_ptr(), ea.shape[1],
-          wpack.data_ptr(), m_sum.data_ptr(), t_sum.data_ptr(), n, stream)
-    FWD_LAUNCHES += 1
-    return m_sum, t_sum
+    with span("ops.edge_fwd"):
+        if x.device.type == "cpu":
+            return edge_block_fwd_plain(ud, us, x, rowptr, src, ea, wpack, bf16)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        _check_cuda(bf16, ud, us, x, rowptr, src, ea, wpack)
+        lib = _lib()
+        n = x.shape[0]
+        m_sum = torch.empty((n, H), dtype=torch.float32, device=x.device)
+        t_sum = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _call(lib.fastegnn_edge_fwd, int(bf16), ud.data_ptr(), us.data_ptr(), x.data_ptr(),
+              rowptr.data_ptr(), src.data_ptr(), ea.data_ptr(), ea.shape[1],
+              wpack.data_ptr(), m_sum.data_ptr(), t_sum.data_ptr(), n, stream)
+        FWD_LAUNCHES += 1
+        return m_sum, t_sum
 
 
 def edge_block_bwd(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16: bool):
@@ -270,31 +274,32 @@ def edge_block_bwd(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16: bool)
     the weight grads with f32 atomics, so those vary in the last bits from
     run to run; dUd is deterministic."""
     global BWD_LAUNCHES
-    if x.device.type == "cpu":
-        return edge_block_bwd_plain(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    n = x.shape[0]
-    _check_cuda(bf16, ud, us, x, rowptr, src, ea, wpack, dst=dst, dms=dms, dts=dts)
-    if dst.dtype != torch.int32 or dst.shape != src.shape:
-        raise ValueError("dst must be int32 shaped like src")
-    if dms.shape != (n, H) or dts.shape != (n, 3) or dms.dtype != torch.float32 \
-            or dts.dtype != torch.float32:
-        raise ValueError("dms / dts must be f32 [N, 64] / [N, 3]")
-    lib = _lib()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dud = torch.zeros((n, H), **f32)
-    dus = torch.zeros((n, H), **f32)
-    dxd = torch.zeros((n, 3), **f32)
-    dxs = torch.zeros((n, 3), **f32)
-    dw = torch.zeros((PACK_ROWS, H), **f32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _call(lib.fastegnn_edge_bwd, int(bf16), ud.data_ptr(), us.data_ptr(), x.data_ptr(),
-          rowptr.data_ptr(), src.data_ptr(), dst.data_ptr(), ea.data_ptr(), ea.shape[1],
-          wpack.data_ptr(), dms.data_ptr(), dts.data_ptr(), dud.data_ptr(),
-          dus.data_ptr(), dxd.data_ptr(), dxs.data_ptr(), dw.data_ptr(), n, stream)
-    BWD_LAUNCHES += 1
-    return dud, dus, dxd - dxs, dw
+    with span("ops.edge_bwd"):
+        if x.device.type == "cpu":
+            return edge_block_bwd_plain(ud, us, x, rowptr, src, dst, ea, wpack, dms, dts, bf16)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        n = x.shape[0]
+        _check_cuda(bf16, ud, us, x, rowptr, src, ea, wpack, dst=dst, dms=dms, dts=dts)
+        if dst.dtype != torch.int32 or dst.shape != src.shape:
+            raise ValueError("dst must be int32 shaped like src")
+        if dms.shape != (n, H) or dts.shape != (n, 3) or dms.dtype != torch.float32 \
+                or dts.dtype != torch.float32:
+            raise ValueError("dms / dts must be f32 [N, 64] / [N, 3]")
+        lib = _lib()
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dud = torch.zeros((n, H), **f32)
+        dus = torch.zeros((n, H), **f32)
+        dxd = torch.zeros((n, 3), **f32)
+        dxs = torch.zeros((n, 3), **f32)
+        dw = torch.zeros((PACK_ROWS, H), **f32)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _call(lib.fastegnn_edge_bwd, int(bf16), ud.data_ptr(), us.data_ptr(), x.data_ptr(),
+              rowptr.data_ptr(), src.data_ptr(), dst.data_ptr(), ea.data_ptr(), ea.shape[1],
+              wpack.data_ptr(), dms.data_ptr(), dts.data_ptr(), dud.data_ptr(),
+              dus.data_ptr(), dxd.data_ptr(), dxs.data_ptr(), dw.data_ptr(), n, stream)
+        BWD_LAUNCHES += 1
+        return dud, dus, dxd - dxs, dw
 
 
 # ---------------------------------------------------------------------------

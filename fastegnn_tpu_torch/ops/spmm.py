@@ -31,7 +31,8 @@ The JAX package's ``CSRMeta`` block tables are not ported: the batch's
 
 On a CPU tensor :func:`segment_sum_csr` runs :func:`segment_sum_csr_plain`;
 on a CUDA tensor it launches the kernel or raises.  ``SEGSUM_LAUNCHES``
-counts kernel launches.
+counts kernel launches; under a profiler the wrapper records the span
+``ops.segsum`` (``utils/profiling.py::span``) around them.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from fastegnn_tpu_torch.utils.profiling import span
 
 SEGSUM_LAUNCHES = 0
 
@@ -82,36 +85,37 @@ def segment_sum_csr(data: torch.Tensor, rowptr: torch.Tensor,
     indices: ``rowptr`` must be non-decreasing and every row it reads must
     lie in ``data``."""
     global SEGSUM_LAUNCHES
-    if data.device.type == "cpu":
-        return segment_sum_csr_plain(data, rowptr, perm)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
-    if data.dim() != 2 or data.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"data must be a 2-D f32 or bf16 tensor, got "
-                         f"{tuple(data.shape)} {data.dtype}")
-    if data.shape[1] == 0:
-        raise ValueError("data must have at least one feature")
-    for name, t in (("data", data), ("rowptr", rowptr), ("perm", perm)):
-        if t is None:
-            continue
-        if t.device != data.device:
-            raise ValueError(f"{name} is on {t.device}, expected {data.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if name != "data" and (t.dtype != torch.int32 or t.dim() != 1):
-            raise ValueError(f"{name} must be a 1-D int32 tensor")
-    if rowptr.shape[0] < 1:
-        raise ValueError("rowptr needs at least one entry")
-    n, f = rowptr.shape[0] - 1, data.shape[1]
-    out = torch.empty((n, f), dtype=torch.float32, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = _lib().fastegnn_segment_sum(
-        int(data.dtype == torch.bfloat16), data.data_ptr(), rowptr.data_ptr(),
-        None if perm is None else perm.data_ptr(), out.data_ptr(), n, f, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA segment-sum kernel launch failed: cudaError {err}")
-    SEGSUM_LAUNCHES += 1
-    return out
+    with span("ops.segsum"):
+        if data.device.type == "cpu":
+            return segment_sum_csr_plain(data, rowptr, perm)
+        if data.device.type != "cuda":
+            raise ValueError(f"unsupported device {data.device}")
+        if data.dim() != 2 or data.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"data must be a 2-D f32 or bf16 tensor, got "
+                             f"{tuple(data.shape)} {data.dtype}")
+        if data.shape[1] == 0:
+            raise ValueError("data must have at least one feature")
+        for name, t in (("data", data), ("rowptr", rowptr), ("perm", perm)):
+            if t is None:
+                continue
+            if t.device != data.device:
+                raise ValueError(f"{name} is on {t.device}, expected {data.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if name != "data" and (t.dtype != torch.int32 or t.dim() != 1):
+                raise ValueError(f"{name} must be a 1-D int32 tensor")
+        if rowptr.shape[0] < 1:
+            raise ValueError("rowptr needs at least one entry")
+        n, f = rowptr.shape[0] - 1, data.shape[1]
+        out = torch.empty((n, f), dtype=torch.float32, device=data.device)
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = _lib().fastegnn_segment_sum(
+            int(data.dtype == torch.bfloat16), data.data_ptr(), rowptr.data_ptr(),
+            None if perm is None else perm.data_ptr(), out.data_ptr(), n, f, stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA segment-sum kernel launch failed: cudaError {err}")
+        SEGSUM_LAUNCHES += 1
+        return out
 
 
 def _take(h: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

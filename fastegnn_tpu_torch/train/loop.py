@@ -15,7 +15,8 @@ Each step gets a host key made from ``(seed, tag, epoch, i)``
 (:func:`step_key`), so its MMD draw does not depend on what ran before it.
 The per-step losses stay on the device; each epoch reads them back once.
 Beside the JAX log's keys, ``log_dict["telemetry"]`` keeps per epoch the
-wall seconds, the median train step ms (:class:`StepTimer`), the steps and,
+wall seconds, the median interval between train step completions
+(:class:`StepTimer`, so the waits for batches count), the steps and,
 on a card, the peak device memory.
 
 Under data or graph parallelism (``train_step_fn`` / ``batch_iter_fn`` /
@@ -55,8 +56,8 @@ def _mean(losses) -> float:
 
 def _run_epoch_train(train_step, batches, seed, epoch, timer):
     losses = []
+    timer.start()
     for i, batch in enumerate(batches):
-        timer.start()
         losses.append(train_step(batch, step_key(seed, 0, epoch, i))["mse"])
         timer.stop()
     return _mean(losses), len(losses)

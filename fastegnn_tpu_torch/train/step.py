@@ -8,6 +8,11 @@ training loop's host key (``key=``, a numpy uint32[2] made from ``(seed,
 tag, epoch, i)``, so that a resumed run draws what an uninterrupted run
 drew), or from the step's own ``generator``.  Steps return detached
 scalars ``{"loss", "mse", "mmd"}`` and do not synchronise with the device.
+
+Under a profiler a train step records the spans ``train.step`` around its
+body, and inside it ``step.draw`` (the MMD draw), ``step.forward`` (the
+model), ``step.loss``, ``step.backward`` and ``step.optimizer``
+(``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from fastegnn_tpu_torch.graph import GraphBatch
 from fastegnn_tpu_torch.train.loss import masked_mse, mmd_loss
+from fastegnn_tpu_torch.utils.profiling import span
 
 
 def draw_sample(graph: GraphBatch, per_graph_sampling: bool,
@@ -53,15 +59,17 @@ def make_loss_fn(model, sigma: float, weight: float, sample: int,
     and is 0 for a model without one (``fastegnn_tpu/train/step.py:94-104``)."""
 
     def loss_fn(graph: GraphBatch, draw: Optional[torch.Tensor]):
-        out = model(graph)
-        pred = prediction(out)
-        mse = masked_mse(pred, graph.coord_target, graph.node_mask)
-        vloc = out[1] if use_mmd and isinstance(out, tuple) and len(out) > 1 else None
-        if vloc is None:
-            return mse, mse, torch.zeros_like(mse)
-        kw = {"scores": draw} if per_graph_sampling else {"perm": draw}
-        mmd = mmd_loss(pred, vloc, graph.node_mask, graph.n_graphs, sigma, sample, **kw)
-        return mse + weight * mmd, mse, mmd
+        with span("step.forward"):
+            out = model(graph)
+        with span("step.loss"):
+            pred = prediction(out)
+            mse = masked_mse(pred, graph.coord_target, graph.node_mask)
+            vloc = out[1] if use_mmd and isinstance(out, tuple) and len(out) > 1 else None
+            if vloc is None:
+                return mse, mse, torch.zeros_like(mse)
+            kw = {"scores": draw} if per_graph_sampling else {"perm": draw}
+            mmd = mmd_loss(pred, vloc, graph.node_mask, graph.n_graphs, sigma, sample, **kw)
+            return mse + weight * mmd, mse, mmd
 
     return loss_fn
 
@@ -76,15 +84,19 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, sigma: float = 1.5,
 
     def step(graph: GraphBatch, key=None,
              draw: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        model.train()
-        if draw is None and use_mmd:
-            draw = draw_sample(graph, per_graph_sampling, generator if key is None
-                               else key_generator(key, graph.device))
-        optimizer.zero_grad(set_to_none=True)
-        total, mse, mmd = loss_fn(graph, draw)
-        total.backward()
-        optimizer.step()
-        return {"loss": total.detach(), "mse": mse.detach(), "mmd": mmd.detach()}
+        with span("train.step"):
+            model.train()
+            if draw is None and use_mmd:
+                with span("step.draw"):
+                    draw = draw_sample(graph, per_graph_sampling, generator if key is None
+                                       else key_generator(key, graph.device))
+            optimizer.zero_grad(set_to_none=True)
+            total, mse, mmd = loss_fn(graph, draw)
+            with span("step.backward"):
+                total.backward()
+            with span("step.optimizer"):
+                optimizer.step()
+            return {"loss": total.detach(), "mse": mse.detach(), "mmd": mmd.detach()}
 
     return step
 
